@@ -1,0 +1,287 @@
+"""VAR-GP forward path: the ELBO value and the predictive probabilities.
+
+Counterpart of ``vargp_tpu/models/vargp.py`` for the non-DKL model with
+the inverse-based solves and the whitened-factored AR posterior, forward
+only.  Every random draw of the path is an explicit tensor in ``noise``:
+
+  ``hyper_eps``  (n_var_samples, D+1)        hyper-sample noise
+  ``prefix_eps`` (n_var_samples, H, O, c)    prefix draws of u_{<t}, c = S - M
+                                             (``loss`` with a chain only)
+  ``lik_eps``    (H, n_f, O, B)              function-sample noise
+
+``utils.convert`` builds these from numpy arrays, which is how the tests
+feed the JAX package's own draws to this package.
+"""
+
+from dataclasses import dataclass, replace
+from typing import NamedTuple, Sequence
+
+import torch
+
+from vargp_tpu_torch import gpmath
+from vargp_tpu_torch.kernels import (
+    RBFParams,
+    RBFPrior,
+    cross_gram,
+    gram_diag,
+    kl_hypers,
+    sample_hypers,
+    sym_gram,
+)
+from vargp_tpu_torch.likelihoods import softmax_loss, softmax_predict
+from vargp_tpu_torch.ops.device import check_on_device, resolve_device
+from vargp_tpu_torch.ops.dispatch import chol_and_inv
+
+
+class TaskPosterior(NamedTuple):
+    """Frozen variational posterior of a completed task."""
+
+    z: torch.Tensor  # (O, M, D)
+    u_mean: torch.Tensor  # (O, M, 1)
+    u_tril: torch.Tensor  # (O, M, M)
+
+
+class VARGPParams(NamedTuple):
+    """Parameters of the current task."""
+
+    z: torch.Tensor  # (O, M, D)
+    u_mean: torch.Tensor  # (O, M, 1)
+    u_tril_vec: torch.Tensor  # (O, M(M+1)/2), row-major packing
+    kernel: RBFParams
+
+
+@dataclass(frozen=True)
+class VARGPConfig:
+    """Static model configuration; the fields of the JAX package's config.
+    Only the non-DKL, ``solve_via_inverse``, row-major-packed model is
+    ported: other values raise ``NotImplementedError``."""
+
+    M: int
+    out_size: int
+    in_size: int
+    n_f: int = 10
+    n_var_samples: int = 3
+    ep_var_mean: bool = True
+    map_est_hypers: bool = False
+    dkl: bool = False
+    jitter: float = gpmath.DEFAULT_JITTER
+    solve_via_inverse: bool = True
+    tril_layout: str = "rowmajor"
+
+
+class ForwardResult(NamedTuple):
+    f_mean: torch.Tensor  # (H, O, B)
+    f_var: torch.Tensor  # (H, O, B)
+    kl_hypers: torch.Tensor  # scalar
+    kl_u: torch.Tensor  # scalar
+
+
+class ChainPosterior(NamedTuple):
+    """The x-independent state of one forward pass: hyper samples, the
+    chain Gram's factor and inverse, and the whitened-factored posterior."""
+
+    theta: torch.Tensor  # (H, D+1)
+    L: torch.Tensor  # (H, O, S, S)
+    L_inv: torch.Tensor  # (H, O, S, S)
+    z_all: torch.Tensor  # (O, S, D)
+    u_tril_t: torch.Tensor  # (O, M, M)
+    w_blocks: torch.Tensor  # (H, O, T, M, M)
+    v_mean: torch.Tensor  # (H, O, S, 1)
+
+
+def _check_supported(cfg: VARGPConfig) -> None:
+    if cfg.dkl:
+        raise NotImplementedError("the deep kernel (dkl=True) is not ported yet")
+    if not cfg.solve_via_inverse:
+        raise NotImplementedError("only solve_via_inverse=True is ported")
+    if cfg.tril_layout != "rowmajor":
+        raise NotImplementedError(f"tril_layout={cfg.tril_layout!r} is not ported")
+
+
+def eval_budget_cfg(cfg: VARGPConfig, n_f: int | None = None,
+                    n_var_samples: int | None = None) -> VARGPConfig:
+    """Config with the eval-time MC budgets overridden; None keeps the
+    config's value and a non-positive budget raises."""
+    for name, v in (("n_f", n_f), ("n_var_samples", n_var_samples)):
+        if v is not None and v < 1:
+            raise ValueError(f"{name}={v}: eval MC budget must be >= 1")
+    if n_f is None and n_var_samples is None:
+        return cfg
+    return replace(
+        cfg,
+        n_f=cfg.n_f if n_f is None else n_f,
+        n_var_samples=cfg.n_var_samples if n_var_samples is None else n_var_samples,
+    )
+
+
+def _unpack_u_tril(params: VARGPParams, cfg: VARGPConfig) -> torch.Tensor:
+    return gpmath.vec2tril(params.u_tril_vec, cfg.M)
+
+
+def _concat_chain(params: VARGPParams, prev: Sequence[TaskPosterior], cfg):
+    """The chain's inducing points, means and scale factors in task order,
+    current task last."""
+    u_tril_t = _unpack_u_tril(params, cfg)
+    z_all = torch.cat([p.z for p in prev] + [params.z], dim=-2)
+    u_means = [p.u_mean for p in prev] + [params.u_mean]
+    u_trils = [p.u_tril for p in prev] + [u_tril_t]
+    return z_all, u_means, u_trils, u_tril_t
+
+
+def pad_chain(prev: Sequence[TaskPosterior], cfg: VARGPConfig, t_max: int,
+              *, device=None):
+    """Pad the frozen chain to ``t_max - 1`` entries with inert dummies
+    (z=0, u_mean=0, u_tril=I) on ``device`` (None means the card) and
+    return (padded_prev, chain_mask).  With the Gram masking in
+    ``build_posterior`` the result for the real prefix is exact."""
+    n_prev = len(prev)
+    if n_prev > t_max - 1:
+        raise ValueError(f"chain of {n_prev} tasks does not fit t_max={t_max}")
+    device = resolve_device(device)
+    check_on_device(device, *(t for p in prev for t in p))
+    O, M, D = cfg.out_size, cfg.M, cfg.in_size
+    dummy = TaskPosterior(
+        z=torch.zeros((O, M, D), device=device),
+        u_mean=torch.zeros((O, M, 1), device=device),
+        u_tril=torch.eye(M, device=device).expand(O, M, M),
+    )
+    padded = tuple(prev) + (dummy,) * (t_max - 1 - n_prev)
+    mask = torch.tensor(
+        [1.0] * n_prev + [0.0] * (t_max - 1 - n_prev), device=device
+    )
+    return padded, mask
+
+
+def _row_mask(chain_mask: torch.Tensor, M: int) -> torch.Tensor:
+    """Per-inducing-row mask over the whole chain, current task included."""
+    return torch.cat([
+        torch.repeat_interleave(chain_mask, M), chain_mask.new_ones(M)
+    ])
+
+
+def build_posterior(params: VARGPParams, prev: Sequence[TaskPosterior],
+                    hyper_eps: torch.Tensor, cfg: VARGPConfig, *,
+                    chain_mask: torch.Tensor | None = None) -> ChainPosterior:
+    """Sample theta and build the AR joint posterior over the whole chain."""
+    theta = sample_hypers(params.kernel, hyper_eps, map_est=cfg.map_est_hypers)
+    z_all, u_means, u_trils, u_tril_t = _concat_chain(params, prev, cfg)
+    Kzz = sym_gram(theta, z_all)  # (H, O, S, S)
+    if chain_mask is not None:
+        rm = _row_mask(chain_mask, cfg.M)
+        Kzz = Kzz * (rm[:, None] * rm[None, :]) + torch.diag(1.0 - rm)
+    L, L_inv = chol_and_inv(gpmath.add_jitter(Kzz, cfg.jitter))
+    # a chain of one task takes the same products as the JAX package's
+    # materialised form at T = 1 (mean = u_mean, scale = u_tril)
+    fpost = gpmath.ar_joint_posterior_factored(L, L_inv, u_means, u_trils)
+    return ChainPosterior(
+        theta=theta, L=L, L_inv=L_inv, z_all=z_all, u_tril_t=u_tril_t,
+        w_blocks=fpost.w, v_mean=fpost.v,
+    )
+
+
+def marginal_diag(cp: ChainPosterior, x: torch.Tensor, cfg: VARGPConfig, *,
+                  chain_mask: torch.Tensor | None = None):
+    """Diagonal predictive marginal (f_mean, f_var), each (H, O, B)."""
+    Kzx = cross_gram(cp.theta, cp.z_all, x)  # (H, O, S, B)
+    if chain_mask is not None:
+        Kzx = Kzx * _row_mask(chain_mask, cfg.M)[:, None]
+    return gpmath.whitened_marginal_diag_factored(
+        cp.L_inv, cp.v_mean, cp.w_blocks, Kzx, gram_diag(cp.theta)
+    )
+
+
+def _check_noise(noise: dict, cfg: VARGPConfig, c: int, B: int, with_kl: bool):
+    H = 1 if cfg.map_est_hypers else cfg.n_var_samples
+    want = {
+        "hyper_eps": (cfg.n_var_samples, cfg.in_size + 1),
+        "lik_eps": (H, cfg.n_f, cfg.out_size, B),
+    }
+    if with_kl and c:
+        want["prefix_eps"] = (cfg.n_var_samples, H, cfg.out_size, c)
+    for key, shape in want.items():
+        got = noise.get(key)
+        if got is None or tuple(got.shape) != shape:
+            raise ValueError(
+                f"noise[{key!r}]: expected shape {shape}, got "
+                f"{None if got is None else tuple(got.shape)}"
+            )
+
+
+def forward(params: VARGPParams, prev: Sequence[TaskPosterior],
+            prior: RBFPrior | None, x: torch.Tensor, noise: dict,
+            cfg: VARGPConfig, *, with_kl: bool,
+            chain_mask: torch.Tensor | None = None) -> ForwardResult:
+    """One ELBO forward pass: the diagonal predictive moments per hyper
+    sample and, when ``with_kl``, the two KL terms."""
+    _check_supported(cfg)
+    c = len(prev) * cfg.M
+    _check_noise(noise, cfg, c, x.shape[0], with_kl)
+    cp = build_posterior(params, prev, noise["hyper_eps"], cfg, chain_mask=chain_mask)
+    f_mean, f_var = marginal_diag(cp, x, cfg, chain_mask=chain_mask)
+    if not with_kl:
+        zero = f_mean.new_zeros(())
+        return ForwardResult(f_mean, f_var, zero, zero)
+
+    L, L_inv = cp.L, cp.L_inv
+    klh = kl_hypers(params.kernel, prior, map_est=cfg.map_est_hypers)
+    if prev:
+        L21 = L[..., c:, :c]
+        L22 = L[..., c:, c:]  # factor of the conditional prior covariance
+        # u_{<t} ~ q(u_{<t}|theta) drawn in whitened space: the prefix of
+        # the joint posterior is (v[:c], blockdiag(w[:n_prev]))
+        n_prev = c // cfg.M
+        v_lt = cp.v_mean[..., :c, :]
+        eps = noise["prefix_eps"]
+        e4 = eps.reshape(*eps.shape[:-1], n_prev, cfg.M, 1)
+        s = gpmath.mm(cp.w_blocks[..., :n_prev, :, :], e4)
+        w = v_lt + s.reshape(*eps.shape[:-1], c, 1)
+        prior_mu_t = gpmath.mm(L21, w)[..., 0]  # (n_v, H, O, M)
+        mask = 1.0 if cfg.ep_var_mean else 0.0
+        var_mu_t = prior_mu_t * mask + params.u_mean[..., 0]
+        kl = gpmath.mvn_kl(
+            var_mu_t, cp.u_tril_t, prior_mu_t, L22, Lp_inv=L_inv[..., c:, c:]
+        )  # (n_v, H, O)
+    else:
+        mu = params.u_mean[..., 0]
+        kl = gpmath.mvn_kl(mu, cp.u_tril_t, torch.zeros_like(mu), L, Lp_inv=L_inv)
+    kl_u = torch.mean(torch.sum(kl, dim=-1))
+    return ForwardResult(f_mean, f_var, klh, kl_u)
+
+
+def _tensors(params, prev, *more):
+    out = [params.z, params.u_mean, params.u_tril_vec, *params.kernel]
+    for p in prev:
+        out.extend(p)
+    out.extend(t for t in more if isinstance(t, torch.Tensor))
+    return out
+
+
+def loss(params: VARGPParams, prev: Sequence[TaskPosterior], prior: RBFPrior,
+         x: torch.Tensor, y: torch.Tensor, noise: dict, cfg: VARGPConfig,
+         weights: torch.Tensor | None = None,
+         chain_mask: torch.Tensor | None = None, *, device=None):
+    """ELBO pieces (kl_hypers, kl_u, nll); a trainer combines them as
+    beta*kl_hypers + kl_u + (N/B)*nll.  ``weights`` masks padded batch
+    rows, ``chain_mask`` turns on padded-chain mode (``pad_chain``).
+    ``device=None`` means the card; every tensor must lie on it."""
+    dev = resolve_device(device)
+    check_on_device(
+        dev, *_tensors(params, prev, *prior, x, y, weights, chain_mask, *noise.values())
+    )
+    out = forward(params, prev, prior, x, noise, cfg, with_kl=True, chain_mask=chain_mask)
+    nll = softmax_loss(out.f_mean, out.f_var, y, noise["lik_eps"], weights=weights)
+    return out.kl_hypers, out.kl_u, nll
+
+
+def predict(params: VARGPParams, prev: Sequence[TaskPosterior], x: torch.Tensor,
+            noise: dict, cfg: VARGPConfig, *, n_f: int | None = None,
+            n_var_samples: int | None = None,
+            chain_mask: torch.Tensor | None = None, device=None) -> torch.Tensor:
+    """Predictive class probabilities (B, out_size).  The eval-time MC
+    budgets may be overridden; ``noise`` must match them."""
+    dev = resolve_device(device)
+    check_on_device(dev, *_tensors(params, prev, x, chain_mask, *noise.values()))
+    cfg_eval = eval_budget_cfg(cfg, n_f=n_f, n_var_samples=n_var_samples)
+    out = forward(params, prev, None, x, noise, cfg_eval, with_kl=False,
+                  chain_mask=chain_mask)
+    return softmax_predict(out.f_mean, out.f_var, noise["lik_eps"])

@@ -1,0 +1,1 @@
+"""Dispatch between the hand-written CUDA kernels and their plain versions."""

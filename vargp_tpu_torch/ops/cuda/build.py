@@ -1,0 +1,136 @@
+"""Build and load the hand-written Hopper kernels.
+
+One ``nvcc`` call compiles every ``.cu`` file under ``vargp_tpu_torch/csrc``
+for ``sm_90a`` into one shared library with a plain C interface, loaded
+with ``ctypes``.  No PyTorch headers are involved, so the build takes
+seconds.  It runs at first use, never at import: the library goes into
+``vargp_tpu_torch/_build/<hash of the sources and flags>/``, so a changed
+source rebuilds and an unchanged one is loaded as it is.
+"""
+
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG / "_build"
+_LIB_NAME = "libvargp_kernels.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # name: argument types; every function returns cudaGetLastError()
+    "vargp_sym_gram": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "vargp_cross_gram": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "vargp_diag_chol": (_P, _P, _I, _P),
+}
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def find_nvcc() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``/usr/local/cuda/bin/nvcc``; raises
+    when there is neither."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    cands.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in cands:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin and /usr/local/cuda/bin): "
+        "the CUDA toolkit is needed to build vargp_tpu_torch's kernels"
+    )
+
+
+def library_path() -> Path:
+    return BUILD_ROOT / _digest() / _LIB_NAME
+
+
+def build() -> Path:
+    """Compile the kernels unless this exact source set is already built.
+    Returns the library's path.  Safe against concurrent builders: each
+    writes its own temporary file and renames it into place."""
+    so = library_path()
+    if so.is_file():
+        return so
+    nvcc = find_nvcc()
+    so.parent.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{_LIB_NAME}.{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"kernel build failed ({' '.join(cmd)}):\n{res.stdout}{res.stderr}"
+        )
+    os.replace(tmp, so)
+    return so
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def on_cpu(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU (the wrapper then takes its
+    plain version), False when all lie on one CUDA device (it launches its
+    kernel); anything else raises."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type == "cuda":
+        return False
+    raise ValueError(f"no kernel for device {dev}")
+
+
+def check_f32_contiguous(name: str, *tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: kernels take contiguous float32 tensors, got "
+                f"{t.dtype} with strides {t.stride()}"
+            )
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call one kernel launcher on ``device``'s current PyTorch stream and
+    raise if CUDA refused the launch."""
+    fn = getattr(library(), name)
+    with torch.cuda.device(device):
+        status = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if status != 0:
+        raise RuntimeError(f"{name}: launch refused") from torch.cuda.CudaError(
+            status
+        )

@@ -1,0 +1,49 @@
+"""K4: fused-scaling ARD-RBF cross Gram (``csrc/cross_gram.cu``).
+
+Replaces ``vargp_tpu/ops/pallas/rbf_gram.py::_cross_gram_4d``.  A CUDA
+tensor launches the kernel; a CPU tensor takes :func:`cross_gram_plain`,
+the einsum body of ``_cross_gram_impl`` (``rbf_gram.py:477-482``).
+"""
+
+import torch
+
+from vargp_tpu_torch.ops.cuda.build import check_f32_contiguous, launch, on_cpu
+
+
+def cross_gram_plain(z: torch.Tensor, x: torch.Tensor, invs2: torch.Tensor,
+                     gamma2: torch.Tensor) -> torch.Tensor:
+    """z (O, M, D), x (B, D), invs2 (H, D), gamma2 (H,) -> (H, O, M, B)."""
+    xs = x[None] * invs2[:, None, :]  # (H, B, D)
+    cross = torch.einsum("oid,hbd->hoib", z, xs)
+    zz = torch.einsum("oid,hd->hoi", z * z, invs2)
+    xx = torch.einsum("bd,hd->hb", x * x, invs2)
+    d2 = torch.clamp(zz[..., None] + xx[:, None, None, :] - 2.0 * cross, min=0.0)
+    return gamma2[:, None, None, None] * torch.exp(-0.5 * d2)
+
+
+def cross_gram(z: torch.Tensor, x: torch.Tensor, invs2: torch.Tensor,
+               gamma2: torch.Tensor) -> torch.Tensor:
+    """K[h, o, i, b] = gamma2[h] exp(-0.5 sum_d invs2[h, d] (z[o,i,d] - x[b,d])^2)."""
+    if on_cpu(z, x, invs2, gamma2):
+        return cross_gram_plain(z, x, invs2, gamma2)
+    O, M, D = z.shape
+    B = x.shape[0]
+    H = invs2.shape[0]
+    if x.shape != (B, D) or invs2.shape != (H, D) or gamma2.shape != (H,):
+        raise ValueError(
+            f"cross_gram: z {tuple(z.shape)}, x {tuple(x.shape)}, invs2 "
+            f"{tuple(invs2.shape)}, gamma2 {tuple(gamma2.shape)}"
+        )
+    if H * O > 65535:
+        raise ValueError(f"cross_gram: H*O = {H * O} exceeds the grid's z limit")
+    check_f32_contiguous("cross_gram", z, x, invs2, gamma2)
+    out = torch.empty((H, O, M, B), device=z.device, dtype=torch.float32)
+    launch(
+        "vargp_cross_gram", z.device, z.data_ptr(), x.data_ptr(), invs2.data_ptr(),
+        gamma2.data_ptr(), out.data_ptr(), H, O, M, B, D,
+    )
+    cross_gram.launches += 1
+    return out
+
+
+cross_gram.launches = 0
