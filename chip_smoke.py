@@ -37,8 +37,8 @@ import torch
 SEED = 0
 FLAGSHIP = dict(n_tasks=5, M=60, O=10, D=784, B=512, H=3, n_f=10)
 
-# H100 SXM rates for the bound (NVIDIA data sheet; the on-chip-measurement
-# table): f32 on the CUDA cores and HBM3 bandwidth.
+# H100 SXM rates for the bound (NVIDIA data sheet): f32 on the CUDA cores
+# and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
