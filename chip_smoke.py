@@ -337,14 +337,16 @@ def main() -> int:
             replaces="vargp_tpu/ops/pallas/rbf_gram.py:305",
             fn=lambda: sym_gram(z, invs, gamma2), plain=lambda: sym_gram_plain(z, invs, gamma2),
             library=lambda: g4 * torch.exp(-0.5 * torch.cdist(sz, sz).square().view(H, O, S, S)),
-            flops=2.0 * H * O * S * S * D, nbytes=4.0 * (O * S * D + 2 * H * D + H + H * O * S * S),
+            # the Gram is symmetric: S(S+1)/2 distinct entries per (h, o), 2D each
+            flops=1.0 * H * O * S * (S + 1) * D, nbytes=4.0 * (O * S * D + 2 * H * D + H + H * O * S * S),
         ),
         dict(
             name="diag_chol", route="cuda", source="vargp_tpu_torch/csrc/diag_chol.cu",
             replaces="vargp_tpu/ops/pallas/chol_panel.py:255",
             fn=lambda: diag_chol(spd), plain=lambda: diag_chol_plain(spd),
             library=lambda: torch.linalg.cholesky(spd),
-            flops=G * 128.0 ** 3 / 3.0, nbytes=2 * 4.0 * G * 128 * 128,
+            # the lower triangle is read, the whole factor written
+            flops=G * 128.0 ** 3 / 3.0, nbytes=4.0 * G * (128 * 129 / 2 + 128 * 128),
         ),
         dict(
             name="cross_gram", route="cuda", source="vargp_tpu_torch/csrc/cross_gram.cu",

@@ -8,9 +8,11 @@ Runs ``loss`` and ``predict`` of the flagship model (the inputs of
 the wall time per call, the device-busy time per call (the sum of kernel
 times; launches do not overlap on one stream), the device idle share, the
 number of kernel launches per call, and, for each call, the kernels that
-take the most device time.
+take the most device time.  The per-call tables come first; the last
+lines are one summary line per call and one JSON object holding them all.
 """
 
+import json
 import sys
 import time
 from pathlib import Path
@@ -39,6 +41,7 @@ def main() -> int:
         "loss": lambda: V.loss(params, prev, prior, x, y, noise, cfg),
         "predict": lambda: V.predict(params, prev, x, pnoise, cfg),
     }
+    summary = {}
     for name, fn in calls.items():
         for _ in range(3):
             fn()
@@ -51,11 +54,16 @@ def main() -> int:
             wall_ms = (time.perf_counter() - t0) / REPS * 1e3
         kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / REPS
-        line = (f"{name}: wall {wall_ms:.4f} ms/call under the profiler, device busy "
-                f"{busy_ms:.4f} ms/call, idle share {1 - busy_ms / wall_ms:.3f}, "
-                f"{len(kernels) / REPS:.1f} kernel launches/call")
-        print(line)
+        summary[name] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                         "idle_share": 1 - busy_ms / wall_ms,
+                         "launches": len(kernels) / REPS}
+        print(f"== {name}: the kernels by device time, {REPS} calls ==")
         print(prof.key_averages().table(sort_by="device_time_total", row_limit=15))
+    for name, m in summary.items():
+        print(f"{name}: wall {m['wall_ms']:.4f} ms/call under the profiler, device busy "
+              f"{m['device_busy_ms']:.4f} ms/call, idle share {m['idle_share']:.3f}, "
+              f"{m['launches']:.1f} kernel launches/call")
+    print(json.dumps(summary))
     return 0
 
 

@@ -132,7 +132,7 @@ def test_hypers_and_gram_diag_match_jax():
     assert float(trbf.kl_hypers(tparams, tprior, map_est=True)) == 0.0
     np.testing.assert_allclose(trbf.gram_diag(theta).numpy(),
                                np.asarray(jrbf.gram_diag(want)), rtol=1e-6)
-    dp = trbf.default_prior(D)
+    dp = trbf.default_prior(D, device="cpu")
     np.testing.assert_array_equal(dp.log_mean.numpy(), np.asarray(jrbf.default_prior(D).log_mean))
 
 

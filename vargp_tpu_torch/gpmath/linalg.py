@@ -143,9 +143,10 @@ def chol_and_inv_blocked(K: torch.Tensor, block_m: int):
     return L, X
 
 
-def tri_inv(L: torch.Tensor, block: int = _TRI_INV_BLOCK) -> torch.Tensor:
+def tri_inv(L: torch.Tensor) -> torch.Tensor:
     """Explicit inverse of a batched lower-triangular matrix: Newton-Schulz
     on 128-row diagonal blocks, matmul row assembly for the rest."""
+    block = _TRI_INV_BLOCK
     S = L.shape[-1]
     if S <= block:
         return _tri_inv_newton(L)

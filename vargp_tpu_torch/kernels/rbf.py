@@ -11,8 +11,9 @@ from typing import NamedTuple
 import torch
 
 from vargp_tpu_torch.gpmath.mvn import diag_normal_kl
-from vargp_tpu_torch.ops import dispatch
 from vargp_tpu_torch.ops.cuda.cross_gram import cross_gram as _cross_gram_kernel
+from vargp_tpu_torch.ops.cuda.sym_gram import sym_gram as _sym_gram_kernel
+from vargp_tpu_torch.ops.device import resolve_device
 
 
 class RBFParams(NamedTuple):
@@ -29,10 +30,10 @@ class RBFPrior(NamedTuple):
     log_logvar: torch.Tensor  # (D + 1,)
 
 
-def default_prior(in_size: int, device: torch.device | str = "cpu",
-                  dtype=torch.float32) -> RBFPrior:
-    """Standard-normal prior over the log-hypers."""
-    z = torch.zeros(in_size + 1, dtype=dtype, device=device)
+def default_prior(in_size: int, device: torch.device | str | None = None) -> RBFPrior:
+    """Standard-normal prior over the log-hypers, on ``device`` (None means
+    the card)."""
+    z = torch.zeros(in_size + 1, device=resolve_device(device))
     return RBFPrior(log_mean=z, log_logvar=z.clone())
 
 
@@ -55,10 +56,12 @@ def kl_hypers(params: RBFParams, prior: RBFPrior, *, map_est: bool = False) -> t
 
 
 def sym_gram(theta: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """K(z, z) for class-stacked z (O, M, D): (n_hypers, O, M, M), through K1."""
+    """K(z, z) for class-stacked z (O, M, D): (n_hypers, O, M, M), through
+    K1.  The triangle-skip twin (K2, chosen at M >= 512 on the TPU) is not
+    ported yet."""
     invs = torch.exp(-theta[:, :-1]).contiguous()  # (H, D)
     gamma2 = torch.exp(2.0 * theta[:, -1]).contiguous()  # (H,)
-    return dispatch.sym_gram(z, invs, gamma2)
+    return _sym_gram_kernel(z, invs, gamma2)
 
 
 def cross_gram(theta: torch.Tensor, z: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -7,8 +7,6 @@ kernels for CUDA tensors and run their plain versions for CPU tensors.
 
 import torch
 
-from vargp_tpu_torch.ops.cuda.sym_gram import sym_gram as _sym_gram_kernel
-
 # Blocked-split rule of vargp_tpu/ops/dispatch.py:185-214.  The upper bound
 # is the diagonal-block kernel's: K3 takes blocks of at most 128 rows, as
 # the Pallas backend has it.
@@ -16,14 +14,6 @@ _BLOCK_LO, _BLOCK_HI = 96, 128
 _FACTOR_BLOCKED_ABOVE = 160  # the JAX package's _BLOCK_HI on other backends
 _MAX_BLOCKS = 8
 _PAD_WASTE_LIMIT = 0.15
-
-
-def sym_gram(z: torch.Tensor, invs: torch.Tensor, gamma2: torch.Tensor) -> torch.Tensor:
-    """Symmetric ARD Gram on raw inputs, scaling fused: z (O, M, D),
-    invs = exp(-log_ls) (H, D), gamma2 (H,) -> (H, O, M, M).  Always K1;
-    the triangle-skip twin (K2, chosen at M >= 512 on the TPU) is not
-    ported yet."""
-    return _sym_gram_kernel(z, invs, gamma2)
 
 
 def _pick_block(S: int) -> int | None:
@@ -40,7 +30,7 @@ def _pick_block(S: int) -> int | None:
     return best[0] if best else None
 
 
-def chol_and_inv(K: torch.Tensor, block_m: int | None = None):
+def chol_and_inv(K: torch.Tensor):
     """(chol(K), chol(K)^{-1}) of a batch of SPD matrices (forward of
     ``_chol_and_inv_impl``)."""
     from vargp_tpu_torch.gpmath.linalg import (
@@ -50,8 +40,6 @@ def chol_and_inv(K: torch.Tensor, block_m: int | None = None):
         tri_inv,
     )
 
-    if block_m is not None and K.shape[-1] % block_m == 0:
-        return chol_and_inv_blocked(K, block_m)
     S = K.shape[-1]
     if S > _FACTOR_BLOCKED_ABOVE:
         d = _pick_block(S)

@@ -18,9 +18,9 @@ from vargp_tpu_torch.models.vargp import TaskPosterior, VARGPParams
 from vargp_tpu_torch.ops.device import resolve_device
 
 
-def to_tensor(a, device=None, dtype=torch.float32) -> torch.Tensor:
-    """A contiguous copy of ``a`` on ``device`` (None means the card)."""
-    return torch.tensor(np.asarray(a), dtype=dtype, device=resolve_device(device))
+def to_tensor(a, device=None) -> torch.Tensor:
+    """A contiguous f32 copy of ``a`` on ``device`` (None means the card)."""
+    return torch.tensor(np.asarray(a), dtype=torch.float32, device=resolve_device(device))
 
 
 def params_from_numpy(params, prev: Sequence = (), prior=None, *, device=None):
