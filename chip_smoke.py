@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive vargp_tpu_torch's forward path on one CUDA card and check it.
+"""Drive vargp_tpu_torch's forward and training paths on one CUDA card and
+check them.
 
     python3 chip_smoke.py
 
@@ -7,18 +8,29 @@ Phases, each of which raises (and the script exits non-zero, printing no
 result) on a failure:
 
 1. the card: ``torch.cuda.is_available()``, its name and power limit;
-2. the build: every kernel of the path compiled from ``vargp_tpu_torch/csrc``
+2. the build: every kernel of the paths compiled from ``vargp_tpu_torch/csrc``
    with one ``nvcc`` call;
-3. each kernel (K1 sym-Gram, K3 diagonal-block Cholesky, K4 cross-Gram) held
-   against its plain PyTorch version on the card, at the flagship shapes and
-   at a ragged shape, and K3 on a block with a non-positive pivot (NaN);
-4. the main path: ``loss`` and ``predict`` of the flagship VAR-GP model
-   (Split-MNIST task 4: a 5-task chain, M=60, 10 classes, D=784, B=512,
+3. each kernel (K1 sym-Gram, K2 triangle-skip sym-Gram, K3 diagonal-block
+   Cholesky, K4 cross-Gram) held against its plain PyTorch version on the
+   card, at the shapes of the paths and at a ragged shape; K1 and K2 must
+   be bitwise symmetric, and K3 must give NaN on a non-positive pivot;
+4. the forward path: ``loss`` and ``predict`` of the flagship VAR-GP model
+   (A, Split-MNIST task 4: a 5-task chain, M=60, 10 classes, D=784, B=512,
    3 hyper samples, 10 function samples; random weights from a numpy seed)
    on the card, with every kernel's launch counter read around it, and the
    same path on the CPU (plain versions) as the reference;
-5. timings with CUDA events: each kernel, its plain version and one PyTorch
-   yardstick call the port never makes; ``loss`` and ``predict`` end to end.
+5. the training path, one ``elbo_step`` each at A (padded chain, S=300,
+   Yogi at lr 3e-3, beta 10) and at B (Permuted-MNIST's final task: a
+   10-task chain, M=100, S=1000, lr 3.7e-3, beta 1.64), with the launch
+   counters read around each step; every parameter's ELBO gradient on the
+   card against the CPU's on the same inputs and noise;
+6. training: a ``train_block`` of 20 Yogi steps at A (finite loss at every
+   step; the first 3 steps' ELBO pieces against the same 3 steps on the CPU,
+   with the block's own permutations and noise) and of 5 steps at B;
+7. timings with CUDA events: each kernel, its plain version and one PyTorch
+   yardstick call the port never makes, K1 at B's shape beside K2; ``loss``
+   and ``predict`` end to end; the forward, forward + backward and whole
+   step of training at A and B.
 
 The line before the last two is one JSON object ``{"kernels": [...]}``; then
 the card's ``nvidia-smi`` name and power limit; the last line is
@@ -36,6 +48,16 @@ import torch
 
 SEED = 0
 FLAGSHIP = dict(n_tasks=5, M=60, O=10, D=784, B=512, H=3, n_f=10)
+PMNIST_LAST = dict(n_tasks=10, M=100, O=10, D=784, B=512, H=3, n_f=10)
+# the two training configurations, from vargp_tpu/experiments/vargp_run.py:
+# A split_mnist (padded 5-task chain), B permuted_mnist's final task (an
+# unpadded 10-task chain); n_rows is the train block's dataset, one epoch
+TRAIN = {
+    "A": dict(shape=FLAGSHIP, lr=3e-3, beta=10.0, padded=True, n_rows=10000,
+              launches={"sym_gram": 1, "sym_gram_tri": 0, "diag_chol": 3, "cross_gram": 1}),
+    "B": dict(shape=PMNIST_LAST, lr=3.7e-3, beta=1.64, padded=False, n_rows=2500,
+              launches={"sym_gram": 0, "sym_gram_tri": 1, "diag_chol": 8, "cross_gram": 1}),
+}
 
 # H100 SXM rates for the bound (NVIDIA data sheet): f32 on the CUDA cores
 # and HBM3 bandwidth.
@@ -54,6 +76,9 @@ TOL_CHOL = 1e-4
 # factorisation, the Newton-Schulz inverse and sums over 10 x 60 KL terms.
 TOL_E2E_REL = 1e-3
 TOL_PROBS = 1e-4
+# Gradients, card against CPU: the same rounding through the backward's
+# products; each leaf against its largest magnitude.
+TOL_GRAD_REL = 1e-3
 
 
 def nvidia_smi_line() -> str:
@@ -124,17 +149,17 @@ def spd_blocks(rng, G, device):
     return torch.tensor(K, device=device)
 
 
-def flagship_model(device, seed=SEED):
-    """The flagship configuration with random weights from ``seed``.
-    Inputs are N(0, 0.01) and the lengthscales start near the median
-    pairwise distance (sqrt(2 * 784 * 0.01) ~ 4), so every Gram entry is
-    O(1) rather than exp(-30)."""
+def flagship_model(device, seed=SEED, shape=FLAGSHIP):
+    """The flagship configuration (or ``shape``'s) with random weights from
+    ``seed``.  Inputs are N(0, 0.01) and the lengthscales start near the
+    median pairwise distance (sqrt(2 * 784 * 0.01) ~ 4), so every Gram
+    entry is O(1) rather than exp(-30)."""
     from vargp_tpu_torch.gpmath import vec2tril
     from vargp_tpu_torch.kernels import RBFParams, default_prior
     from vargp_tpu_torch.models import vargp as V
     from vargp_tpu_torch.utils.convert import noise_for_loss, noise_for_predict
 
-    f = FLAGSHIP
+    f = shape
     O, M, D, B, H, n_f = f["O"], f["M"], f["D"], f["B"], f["H"], f["n_f"]
     rng = np.random.default_rng(seed)
     f32 = np.float32
@@ -239,7 +264,41 @@ def check_kernels(dev):
     return errs, flag
 
 
-KERNELS = ("sym_gram", "diag_chol", "cross_gram")  # wrapper module == wrapper name
+def check_k2(dev):
+    """K2 against its plain version on the card at B's shape and a ragged
+    one: within tolerance, bitwise symmetric, one launch per call.  Returns
+    the largest error and B's inputs for timing."""
+    from vargp_tpu_torch.ops.cuda.sym_gram import sym_gram, sym_gram_plain
+    from vargp_tpu_torch.ops.cuda.sym_gram_tri import sym_gram_tri
+
+    f = PMNIST_LAST
+    rng = np.random.default_rng(SEED + 2)
+    err, flag = 0.0, {}
+    for label, (O, M, D, H) in (
+        ("B", (f["O"], f["n_tasks"] * f["M"], f["D"], f["H"])),
+        ("ragged", (3, 520, 33, 2)),
+    ):
+        z, _, invs, _, gamma2 = gram_inputs(rng, O, M, D, H, 1, dev)
+        before = sym_gram_tri.launches
+        K = sym_gram_tri(z, invs, gamma2)
+        torch.cuda.synchronize()
+        if sym_gram_tri.launches != before + 1:
+            raise AssertionError("K2's launch counter did not count its launch")
+        ref = sym_gram_plain(z, invs, gamma2)
+        e = max_abs_err(K, ref)
+        check(f"K2 sym_gram_tri {label} {tuple(K.shape)}", e, TOL_GRAM * float(gamma2.max()),
+              float(ref.abs().max()))
+        if not torch.equal(K, K.transpose(-1, -2)):
+            raise AssertionError("K2 output is not exactly symmetric")
+        K1 = sym_gram(z, invs, gamma2)
+        print(f"  K2 against K1 on the same inputs: max abs difference {max_abs_err(K, K1):.3e}")
+        err = max(err, e)
+        if label == "B":
+            flag.update(z=z, invs=invs, gamma2=gamma2)
+    return err, flag
+
+
+KERNELS = ("sym_gram", "sym_gram_tri", "diag_chol", "cross_gram")  # module == wrapper name
 
 
 def wrappers() -> dict:
@@ -279,6 +338,153 @@ def check_outputs(where, pieces, probs):
         raise AssertionError(f"{where}: predictive rows do not sum to 1")
 
 
+def train_inputs(name, device):
+    """Configuration ``name`` of TRAIN on ``device``: the model, its step's
+    noise (drawn from the numpy seed, the same on every device), the
+    padded chain's mask, the train block's dataset and the optimizer."""
+    from vargp_tpu_torch.models import vargp as V
+    from vargp_tpu_torch.train import loop as TL
+
+    spec = TRAIN[name]
+    cfg, params, prev, prior, x, y, noise, _ = flagship_model(device, shape=spec["shape"])
+    mask = None
+    if spec["padded"]:  # every slot of the padded chain holds a real task
+        prev, mask = V.pad_chain(prev, cfg, len(prev) + 1, device=device)
+    rng = np.random.default_rng(SEED + 3)
+    data = (rng.standard_normal((spec["n_rows"], cfg.in_size)) * 0.1).astype(np.float32)
+    targets = rng.integers(0, cfg.out_size, spec["n_rows"])
+    dx, dy, dw = TL.pad_dataset_to_device(data, targets, x.shape[0], device=device)
+    opt = TL.make_optimizer(TL.TrainHyperparams(lr=spec["lr"]))
+    return dict(cfg=cfg, params=params, prev=prev, prior=prior, x=x, y=y, noise=noise,
+                w=torch.ones(x.shape[0], device=device), mask=mask, data=(dx, dy, dw),
+                n_train=spec["n_rows"], beta=spec["beta"], opt=opt, device=device)
+
+
+def elbo_grads(t):
+    """The ELBO pieces (tensors on the device) and every parameter leaf's
+    gradient of the ELBO."""
+    from vargp_tpu_torch.models import vargp as V
+    from vargp_tpu_torch.train.optim import tree_leaves, tree_unflatten
+
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(t["params"])]
+    pieces = V.loss(tree_unflatten(t["params"], leaves), t["prev"], t["prior"], t["x"], t["y"],
+                    t["noise"], t["cfg"], weights=t["w"], chain_mask=t["mask"],
+                    device=t["device"])
+    total = t["beta"] * pieces[0] + pieces[1] + t["n_train"] / float(t["x"].shape[0]) * pieces[2]
+    return [v.detach() for v in pieces], torch.autograd.grad(total, leaves)
+
+
+def step(t):
+    from vargp_tpu_torch.train import loop as TL
+
+    return TL.elbo_step(t["params"], t["opt"].init(t["params"]), t["prev"], t["prior"], t["x"],
+                        t["y"], t["w"], t["noise"], cfg=t["cfg"], opt=t["opt"], beta=t["beta"],
+                        n_train=t["n_train"], chain_mask=t["mask"], device=t["device"])
+
+
+def check_train_step(name, dev):
+    """One ELBO step on the card with its launches counted; the ELBO pieces
+    and every gradient against the CPU's.  Returns the step's launches."""
+    t, c = train_inputs(name, dev), train_inputs(name, torch.device("cpu"))
+    reset_counts()
+    _, _, loss, _ = step(t)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"  {name}: one elbo_step, launches {launches}, loss {float(loss)!r}")
+    if launches != TRAIN[name]["launches"]:
+        raise AssertionError(f"{name}: launches {launches}, expected {TRAIN[name]['launches']}")
+    if not math.isfinite(float(loss)):
+        raise AssertionError(f"{name}: non-finite loss")
+    pieces, grads = elbo_grads(t)
+    cpu_pieces, cpu_grads = elbo_grads(c)
+    for n, g, r in zip(("kl_hypers", "kl_u", "nll"), pieces, cpu_pieces):
+        g, r = float(g), float(r)
+        rel = abs(g - r) / max(abs(r), 1e-30)
+        print(f"  {name} {n}: card {g!r} cpu {r!r} rel err {rel:.3e} (tol {TOL_E2E_REL:.0e})")
+        if not rel <= TOL_E2E_REL:
+            raise AssertionError(f"{name} {n}: card and CPU differ by {rel} (relative)")
+    for leaf, g, r in zip(("z", "u_mean", "u_tril_vec", "log_mean", "log_logvar"), grads, cpu_grads):
+        scale = float(r.abs().max())
+        rel = max_abs_err(g.cpu(), r) / max(scale, 1e-30)
+        print(f"  {name} d ELBO / d {leaf}: max abs err / largest magnitude {rel:.3e} "
+              f"(largest {scale:.3e}, tol {TOL_GRAD_REL:.0e})")
+        if not (rel <= TOL_GRAD_REL and bool(torch.isfinite(g).all())):
+            raise AssertionError(f"{name}: gradient of {leaf} differs from the CPU's by {rel}")
+    return launches
+
+
+def check_training(dev):
+    """Train blocks on the card: 20 steps at A, checked against the CPU on
+    the first 3, and 5 steps at B.  Returns each block's launches."""
+    import itertools
+
+    from vargp_tpu_torch.train import loop as TL
+
+    out = {}
+    for name, seed in (("A", 11), ("B", 12)):
+        t = train_inputs(name, dev)
+        dx, dy, dw = t["data"]
+        B = t["x"].shape[0]
+        reset_counts()
+        _, _, losses, pieces = TL.train_block(
+            t["params"], t["opt"].init(t["params"]), t["prev"], t["prior"], t["mask"],
+            t["n_train"], dx, dy, dw, torch.Generator(device=dev).manual_seed(seed),
+            cfg=t["cfg"], opt=t["opt"], beta=t["beta"], batch_size=B, n_epochs=1, device=dev)
+        torch.cuda.synchronize()
+        out[name] = read_counts()
+        losses = losses.cpu()
+        print(f"  {name}: train block of {losses.numel()} steps, launches {out[name]}, "
+              f"losses {[round(float(v), 4) for v in losses]}")
+        if not bool(torch.isfinite(losses).all()):
+            raise AssertionError(f"{name}: a non-finite loss in the train block")
+        if name != "A":
+            continue
+        # the block's first 3 steps again on the CPU: the same permutation
+        # and noise, drawn again on the card from the same seed
+        c = train_inputs(name, torch.device("cpu"))
+        cx, cy, cw = c["data"]
+        draws = itertools.islice(
+            TL.block_draws(torch.Generator(device=dev).manual_seed(seed), dx.shape[0], B, 1,
+                           t["cfg"], len(t["prev"])), 3)
+        params, state = c["params"], c["opt"].init(c["params"])
+        for k, (idx, noise) in enumerate(draws):
+            idx = idx.cpu()
+            noise = {key: v.cpu() for key, v in noise.items()}
+            params, state, _, aux = TL.elbo_step(
+                params, state, c["prev"], c["prior"], cx[idx], cy[idx], cw[idx], noise,
+                cfg=c["cfg"], opt=c["opt"], beta=c["beta"], n_train=c["n_train"],
+                chain_mask=c["mask"], device="cpu")
+            for n, g, r in zip(("kl_hypers", "kl_u", "nll"), pieces[k].tolist(), aux):
+                rel = abs(g - float(r)) / max(abs(float(r)), 1e-30)
+                print(f"  A step {k} {n}: card {g!r} cpu {float(r)!r} rel err {rel:.3e}")
+                if not rel <= TOL_E2E_REL:
+                    raise AssertionError(f"A step {k} {n}: card and CPU differ by {rel}")
+    return out
+
+
+def time_training(dev):
+    """ms per forward, forward + backward and whole step, at A and B."""
+    from vargp_tpu_torch.models import vargp as V
+
+    out = {}
+    for name in TRAIN:
+        t = train_inputs(name, dev)
+        reps = 10 if name == "A" else 5
+
+        def fwd():
+            with torch.no_grad():
+                return V.loss(t["params"], t["prev"], t["prior"], t["x"], t["y"], t["noise"],
+                              t["cfg"], weights=t["w"], chain_mask=t["mask"], device=dev)
+
+        out[name] = {
+            "forward_ms": time_ms(fwd, reps=reps),
+            "forward_backward_ms": time_ms(lambda: elbo_grads(t), reps=reps),
+            "step_ms": time_ms(lambda: step(t), reps=reps),
+        }
+        print(f"  train {name}: " + "  ".join(f"{k} {v:.4f}" for k, v in out[name].items()))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -293,6 +499,7 @@ def main() -> int:
     from vargp_tpu_torch.ops.cuda.cross_gram import cross_gram, cross_gram_plain
     from vargp_tpu_torch.ops.cuda.diag_chol import diag_chol, diag_chol_plain
     from vargp_tpu_torch.ops.cuda.sym_gram import sym_gram, sym_gram_plain
+    from vargp_tpu_torch.ops.cuda.sym_gram_tri import sym_gram_tri
 
     t0 = time.perf_counter()
     build.library()
@@ -301,8 +508,9 @@ def main() -> int:
     dev = torch.device("cuda")
     print("kernels against their plain versions on the card:")
     errs, flag = check_kernels(dev)
+    errs["sym_gram_tri"], flag_b = check_k2(dev)
 
-    print("main path (loss + predict, flagship width):")
+    print("forward path (loss + predict, flagship width):")
     reset_counts()
     pieces, probs = run_slice(dev)
     torch.cuda.synchronize()
@@ -310,7 +518,7 @@ def main() -> int:
     print(f"  launches: {launches}")
     for name, least in (("sym_gram", 2), ("diag_chol", 6), ("cross_gram", 2)):
         if launches[name] < least:
-            raise AssertionError(f"{name}: {launches[name]} launches on the main path, expected >= {least}")
+            raise AssertionError(f"{name}: {launches[name]} launches on the forward path, expected >= {least}")
     check_outputs("card", pieces, probs)
     cpu_pieces, cpu_probs = run_slice(torch.device("cpu"))
     check_outputs("cpu", cpu_pieces, cpu_probs)
@@ -322,6 +530,11 @@ def main() -> int:
             raise AssertionError(f"{n}: card and CPU differ by {rel} (relative)")
     check("predict probabilities, card vs CPU", max_abs_err(probs.cpu(), cpu_probs), TOL_PROBS,
           float(cpu_probs.max()))
+
+    print("training path (one elbo_step each at A and B; gradients, card vs CPU):")
+    step_launches = {name: check_train_step(name, dev) for name in TRAIN}
+    print("training (train blocks on the card):")
+    block_launches = check_training(dev)
 
     print("timings (CUDA events, ms per call):")
     z, x, invs, invs2, gamma2, spd = (flag[k] for k in ("z", "x", "invs", "invs2", "gamma2", "spd"))
@@ -356,17 +569,38 @@ def main() -> int:
             flops=2.0 * H * O * S * B * D, nbytes=4.0 * (O * S * D + B * D + H * D + H + H * O * S * B),
         ),
     ]
+    zb, invsb, g2b = (flag_b[k] for k in ("z", "invs", "gamma2"))
+    Ob, Sb, Db = zb.shape
+    Hb = invsb.shape[0]
+    szb = (zb[None] * invsb[:, None, None, :]).reshape(Hb * Ob, Sb, Db)
+    g4b = g2b[:, None, None, None]
+    entries.insert(1, dict(
+        name="sym_gram_tri", route="cuda", source="vargp_tpu_torch/csrc/sym_gram_tri.cu",
+        replaces="vargp_tpu/ops/pallas/rbf_gram.py:258",
+        fn=lambda: sym_gram_tri(zb, invsb, g2b), plain=lambda: sym_gram_plain(zb, invsb, g2b),
+        library=lambda: g4b * torch.exp(-0.5 * torch.cdist(szb, szb).square().view(Hb, Ob, Sb, Sb)),
+        flops=1.0 * Hb * Ob * Sb * (Sb + 1) * Db,
+        nbytes=4.0 * (Ob * Sb * Db + 2 * Hb * Db + Hb + Hb * Ob * Sb * Sb),
+    ))
     kernels = []
     for e in entries:
         ms, plain_ms, lib_ms = time_ms(e["fn"]), time_ms(e["plain"], reps=5, warmup=1), time_ms(e["library"])
         b_ms, b_by = bound(e["flops"], e["nbytes"])
-        print(f"  {e['name']}: kernel {ms:.4f}  plain {plain_ms:.4f}  yardstick {lib_ms:.4f}  "
-              f"bound {b_ms:.5f} ({b_by})  launches {launches[e['name']]}")
+        n = e["name"]
+        per_step = {k: v[n] for k, v in step_launches.items()}
+        print(f"  {n}: kernel {ms:.4f}  plain {plain_ms:.4f}  yardstick {lib_ms:.4f}  "
+              f"bound {b_ms:.5f} ({b_by})  launches per train step {per_step}, "
+              f"per forward {launches[n]}, per train block "
+              f"{ {k: v[n] for k, v in block_launches.items()} }")
         kernels.append({
-            "name": e["name"], "route": e["route"], "source": e["source"], "replaces": e["replaces"],
-            "launches": launches[e["name"]], "max_abs_err": errs[e["name"]], "ms": ms,
+            "name": n, "route": e["route"], "source": e["source"], "replaces": e["replaces"],
+            # launches: the two counted train steps (A, then B)
+            "launches": sum(per_step.values()), "launches_per_step": per_step,
+            "max_abs_err": errs[n], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
         })
+    print(f"  sym_gram (K1) at B's shape {tuple(szb.shape)}: "
+          f"{time_ms(lambda: sym_gram(zb, invsb, g2b)):.4f}")
 
     from vargp_tpu_torch.models import vargp as V
 
@@ -384,6 +618,7 @@ def main() -> int:
             fn()
         torch.cuda.synchronize()
         print(f"  {label} end to end: {(time.perf_counter() - t0) / reps * 1e3:.4f} ms (host clock, synchronised)")
+    time_training(dev)
     print(f"total: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

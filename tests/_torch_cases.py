@@ -1,0 +1,92 @@
+"""Shared small VAR-GP cases for the port's parity tests: the same numpy
+parameters and data handed to the JAX package and to vargp_tpu_torch, and
+the JAX package's own noise replayed for the port."""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import torch
+
+from vargp_tpu import gpmath as jgm
+from vargp_tpu.models import vargp as JV
+from vargp_tpu_torch.models import vargp as TV
+from vargp_tpu_torch.utils import convert
+
+f32 = np.float32
+
+# S = 3 x 64 = 192 (blocked 2 x 96), padded S = 4 x 64 = 256 (2 x 128);
+# S = 4 x 128 = 512 takes K2 and the triangle-skip Cholesky backward
+# (tri_half_split(512) = 256) on both sides.
+SIZES = {
+    "small": dict(O=3, M=64, D=16, B=32, H=2, N_F=4, n_prev=2),
+    "long": dict(O=2, M=128, D=16, B=32, H=2, N_F=4, n_prev=3),
+}
+
+
+def np_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def build(size: str, seed: int = 0) -> dict:
+    d = SIZES[size]
+    O, M, D, B, H, N_F = (d[k] for k in ("O", "M", "D", "B", "H", "N_F"))
+    rng = np.random.default_rng(seed)
+    prev = tuple(
+        JV.TaskPosterior(
+            z=jnp.asarray((rng.standard_normal((O, M, D)) * 0.3).astype(f32)),
+            u_mean=jnp.asarray((rng.standard_normal((O, M, 1)) * 0.3).astype(f32)),
+            u_tril=jgm.vec2tril(jnp.asarray(
+                (rng.standard_normal((O, M * (M + 1) // 2)) * 0.1).astype(f32))),
+        )
+        for _ in range(d["n_prev"])
+    )
+    cfg = JV.VARGPConfig(M=M, out_size=O, in_size=D, n_f=N_F, n_var_samples=H)
+    z = jnp.asarray((rng.standard_normal((O, M, D)) * 0.3).astype(f32))
+    params, prior = JV.init_params(jax.random.key(seed), z, cfg)
+    params = params._replace(u_tril_vec=params.u_tril_vec + jnp.asarray(
+        (rng.standard_normal(params.u_tril_vec.shape) * 0.05).astype(f32)))
+    prior = prior._replace(log_mean=prior.log_mean + 0.3)
+    x = jnp.asarray((rng.standard_normal((B, D)) * 0.3).astype(f32))
+    y = jnp.asarray(rng.integers(0, O, B))
+    w = jnp.asarray((rng.random(B) > 0.2).astype(f32))
+    tcfg = TV.VARGPConfig(M=M, out_size=O, in_size=D, n_f=N_F, n_var_samples=H)
+    return dict(cfg=cfg, tcfg=tcfg, params=params, prior=prior, prev=prev, x=x, y=y, w=w,
+                dims=d)
+
+
+def chain(m: dict, case: str):
+    """(prev, chain_mask) of the JAX side: the whole chain, no chain
+    (task 0), or the chain padded by one inert slot."""
+    if case == "chain":
+        return m["prev"], None
+    if case == "task0":
+        return (), None
+    return JV.pad_chain(m["prev"], m["cfg"], len(m["prev"]) + 2)
+
+
+def jax_draws(m: dict, key, c: int):
+    """The draws ``JV.loss`` makes from ``key``: hyper samples, prefix draws
+    of u_{<t} (with a chain of c rows) and function samples."""
+    d, cfg = m["dims"], m["cfg"]
+    O, D, B, N_F = d["O"], d["D"], d["B"], d["N_F"]
+    n_v = cfg.n_var_samples
+    H = 1 if cfg.map_est_hypers else n_v  # MAP draws no hypers: the port ignores them
+    k_fwd, k_lik = jax.random.split(key)
+    k_hyp, k_u = jax.random.split(k_fwd)
+    hyper = jax.random.normal(k_hyp, (n_v, D + 1), jnp.float32)
+    prefix = jax.random.normal(k_u, (n_v, H, O, c), jnp.float32) if c else None
+    lik = jax.random.normal(k_lik, (H, N_F, O, B), jnp.float32)
+    return hyper, prefix, lik
+
+
+def port_inputs(m: dict, prev, mask, key, params=None):
+    """The port's (params, prev, prior, x, y, w, noise, chain_mask) on the
+    CPU for the JAX case, with the JAX draws of ``key``."""
+    tp, tprev, tprior = convert.params_from_numpy(
+        np_tree(m["params"] if params is None else params), np_tree(prev),
+        np_tree(m["prior"]), device="cpu")
+    hyper, prefix, lik = jax_draws(m, key, len(prev) * m["dims"]["M"])
+    noise = convert.noise_for_loss(hyper, prefix, lik, device="cpu")
+    t = lambda a: torch.tensor(np.asarray(a))
+    return (tp, tprev, tprior, t(m["x"]), t(m["y"]), t(m["w"]), noise,
+            None if mask is None else t(mask))

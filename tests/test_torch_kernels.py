@@ -1,13 +1,15 @@
-"""The plain versions of K1 (sym-Gram) and K4 (cross-Gram), and the
-kernel, likelihood and hyper-sample functions around them, against the
-JAX package on the CPU; the Grams also against the Pallas kernels run in
-interpret mode.
+"""The plain versions of K1 and K2 (sym-Gram), K4 (cross-Gram), the
+Grams' backward rules, and the kernel, likelihood and hyper-sample
+functions around them, against the JAX package on the CPU; the Grams also
+against the Pallas kernels run in interpret mode.
 
 Tolerances: Gram values lie in (0, gamma2] and both sides compute the
 squared distance in f32 through the norm expansion, so they differ by
 summation order only (1e-6 relative).  The Pallas cross-Gram in its
 production precision emulates a bf16x3 product, which moves the squared
-distance by about 1e-5 relative: its bound is 1e-4.
+distance by about 1e-5 relative: its bound is 1e-4.  The backward rules
+are the same products on the same f32 inputs in another association:
+each cotangent is held to 1e-5 of its largest magnitude.
 """
 
 import functools
@@ -26,6 +28,7 @@ from vargp_tpu_torch.kernels import rbf as trbf
 from vargp_tpu_torch.likelihoods import softmax as tsoft
 from vargp_tpu_torch.ops.cuda.cross_gram import cross_gram, cross_gram_plain
 from vargp_tpu_torch.ops.cuda.sym_gram import sym_gram, sym_gram_plain
+from vargp_tpu_torch.ops.cuda.sym_gram_tri import sym_gram_tri
 
 f32 = np.float32
 
@@ -154,3 +157,103 @@ def test_softmax_loss_and_predict_match_jax(weighted):
     got_p = tsoft.softmax_predict(_t(mu), _t(var), _t(eps))
     assert got_p.shape == (B, O)
     np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p), rtol=1e-6, atol=1e-7)
+
+
+def _close_to_scale(got, want, tol=1e-5, name=""):
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=0,
+                               atol=tol * max(float(np.max(np.abs(want))), 1e-30),
+                               err_msg=name)
+
+
+@pytest.mark.parametrize("O,M,D,H", [(2, 9, 7, 3), (1, 140, 5, 2)])
+def test_sym_gram_tri_plain_matches_pallas_interpret(O, M, D, H):
+    """K2's plain version against the TPU kernel itself (interpret mode):
+    one 128-row panel, and two with a partial last panel."""
+    from vargp_tpu.ops.pallas.rbf_gram import _sym_gram_4d_tri
+
+    z, _, theta = _gram_inputs(M, O, M, D, H)
+    invs = np.exp(-theta[:, :-1])
+    gamma2 = np.exp(2.0 * theta[:, -1])
+    with jax.disable_jit():
+        want = _sym_gram_4d_tri.__wrapped__(*map(jnp.asarray, (z, invs, gamma2)),
+                                            interpret=True)
+    got = sym_gram_tri(*map(_t, (z, invs, gamma2)))  # CPU tensors: the plain version
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(got.numpy(), sym_gram_plain(*map(_t, (z, invs, gamma2))).numpy())
+
+
+def test_sym_gram_routes_as_the_jax_package(monkeypatch):
+    """K2 from 512 chain rows up and K1 below, at the same S as the JAX
+    package's gate on its Pallas backend."""
+    from vargp_tpu.ops import dispatch as jdispatch
+    from vargp_tpu.ops.pallas import rbf_gram as jrg
+
+    monkeypatch.setattr(jdispatch, "_BACKEND", "pallas")
+    jax_route, port_route = [], []
+    monkeypatch.setattr(jrg, "_sym_gram_4d_tri", lambda *a, **k: jax_route.append("K2"))
+    monkeypatch.setattr(jrg, "_sym_gram_4d", lambda *a, **k: jax_route.append("K1"))
+    monkeypatch.setattr(trbf, "_sym_gram_tri_kernel", lambda *a: port_route.append("K2"))
+    monkeypatch.setattr(trbf, "_sym_gram_kernel", lambda *a: port_route.append("K1"))
+    for M in (1, 300, 511, 512, 1000):
+        z, _, theta = _gram_inputs(0, 1, M, 3, 2)
+        jrg._sym_gram_impl(jnp.asarray(z), jnp.asarray(np.exp(-theta[:, :-1])),
+                           jnp.asarray(np.exp(2 * theta[:, -1])))
+        trbf._sym_gram_impl(_t(z), _t(np.exp(-theta[:, :-1])), _t(np.exp(2 * theta[:, -1])))
+    assert port_route == jax_route == ["K1", "K1", "K1", "K2", "K2"]
+
+
+@pytest.mark.parametrize("O,M,D,H", [(2, 70, 9, 3), (1, 520, 6, 2)])
+def test_sym_gram_backward_matches_jax_rule(O, M, D, H):
+    """The autograd rule against ``_sym_gram_bwd`` on the same residuals;
+    M = 520 runs the K2 route."""
+    from vargp_tpu.ops.pallas.rbf_gram import _sym_gram_bwd
+
+    rng = np.random.default_rng(M)
+    z, _, theta = _gram_inputs(M + 1, O, M, D, H)
+    invs = np.exp(-theta[:, :-1]).astype(f32)
+    gamma2 = np.exp(2.0 * theta[:, -1]).astype(f32)
+    g = rng.standard_normal((H, O, M, M)).astype(f32)
+    leaves = [_t(a).requires_grad_() for a in (z, invs, gamma2)]
+    K = trbf._SymGram.apply(*leaves)
+    got = torch.autograd.grad(K, leaves, _t(g))
+    want = _sym_gram_bwd(jax.lax.Precision.HIGHEST,
+                         tuple(map(jnp.asarray, (z, invs, gamma2, K.detach().numpy()))),
+                         jnp.asarray(g))
+    for name, a, b in zip(("z", "invs", "gamma2"), got, want):
+        _close_to_scale(a.numpy(), b, name=name)
+
+
+def test_cross_gram_backward_matches_jax_rule_and_gives_x_nothing():
+    from vargp_tpu.kernels.rbf import _cross_gram_p_bwd
+
+    O, M, B, D, H = 2, 37, 21, 9, 3
+    rng = np.random.default_rng(9)
+    z, x, theta = _gram_inputs(9, O, M, D, H, B)
+    invs2 = np.exp(-2.0 * theta[:, :-1]).astype(f32)
+    gamma2 = np.exp(2.0 * theta[:, -1]).astype(f32)
+    g = rng.standard_normal((H, O, M, B)).astype(f32)
+    leaves = [_t(a).requires_grad_() for a in (z, x, invs2, gamma2)]
+    K = trbf._CrossGram.apply(*leaves)
+    K.backward(_t(g))
+    xs = x[None] * invs2[:, None, :]
+    res = tuple(map(jnp.asarray, (z, x, invs2, gamma2, xs, K.detach().numpy())))
+    dz, dx, d_invs2, d_gamma2 = _cross_gram_p_bwd(jax.lax.Precision.HIGHEST, res, jnp.asarray(g))
+    assert leaves[1].grad is None and not np.any(np.asarray(dx))  # x is data: no cotangent
+    for name, leaf, want in (("z", leaves[0], dz), ("invs2", leaves[2], d_invs2),
+                             ("gamma2", leaves[3], d_gamma2)):
+        _close_to_scale(leaf.grad.numpy(), want, name=name)
+    # through theta, x still gets nothing
+    xt = _t(x).requires_grad_()
+    trbf.cross_gram(_t(theta).requires_grad_(), _t(z), xt).sum().backward()
+    assert xt.grad is None
+
+
+def test_init_rbf_matches_jax():
+    D = 7
+    key = jax.random.key(4)
+    want = jrbf.init_rbf(key, D)
+    eps = jax.random.normal(key, (D + 1,), jnp.float32)  # the draw init_rbf makes
+    got = trbf.init_rbf(_t(eps))
+    np.testing.assert_allclose(got.log_mean.numpy(), np.asarray(want.log_mean), rtol=1e-6)
+    np.testing.assert_array_equal(got.log_logvar.numpy(), np.asarray(want.log_logvar))

@@ -1,5 +1,5 @@
-// Fused ARD-RBF Gram tile shared by the symmetric Gram (sym_gram.cu) and
-// the cross Gram (cross_gram.cu):
+// Fused ARD-RBF Gram tile shared by the symmetric Grams (sym_gram.cu,
+// sym_gram_tri.cu) and the cross Gram (cross_gram.cu):
 //
 //   out[h, o, i, j] = gamma2[h] * exp(-0.5 * max(na_i + nb_j - 2 <a_i, b_j>, 0))
 //
@@ -36,29 +36,25 @@ constexpr int kTileK = 16;   // feature chunk staged per iteration
 constexpr int kThreads = 256;
 constexpr int kPad = 4;      // keeps rows 16-byte aligned for float4 reads
 
+// Shared-memory staging of one tile's product.
+struct TileSmem {
+  alignas(16) float As[kTileK][kTileM + kPad];
+  alignas(16) float Bs[kTileK][kTileN + kPad];
+  float na[kTileM];
+  float nb[kTileN];
+};
+
+// Inner products of rows [row0, row0 + kTileM) of A against rows
+// [col0, col0 + kTileN) of Bm into acc (thread (ty, tx) = (tid >> 4,
+// tid & 15) owns rows ty*4 .. ty*4+3 and cols tx*4 .. tx*4+3 of the tile),
+// and the rows' and cols' squared norms into sm.na / sm.nb.  Ends with a
+// barrier, so sm.na / sm.nb are readable by every thread.
 template <bool SYM>
-__global__ void __launch_bounds__(kThreads) rbf_tile_kernel(
-    const float* __restrict__ a,       // (O, M, D)
-    const float* __restrict__ b,       // (N, D); ignored when SYM
-    const float* __restrict__ scale,   // (H, D): s (SYM) or w (!SYM)
-    const float* __restrict__ gamma2,  // (H,)
-    float* __restrict__ out,           // (H, O, M, N)
-    int O, int M, int N, int D) {
-  __shared__ __align__(16) float As[kTileK][kTileM + kPad];
-  __shared__ __align__(16) float Bs[kTileK][kTileN + kPad];
-  __shared__ float na_s[kTileM];
-  __shared__ float nb_s[kTileN];
-
-  const int ho = blockIdx.z;
-  const int h = ho / O;
-  const int o = ho - h * O;
-  const int row0 = blockIdx.y * kTileM;
-  const int col0 = blockIdx.x * kTileN;
+__device__ __forceinline__ void rbf_tile_accumulate(
+    const float* __restrict__ A, const float* __restrict__ Bm,
+    const float* __restrict__ s, int M, int N, int D, int row0, int col0,
+    TileSmem& sm, float (&acc)[4][4]) {
   const int tid = threadIdx.x;
-
-  const float* A = a + (size_t)o * M * D;
-  const float* Bm = SYM ? A : b;
-  const float* s = scale + (size_t)h * D;
 
   // staging: thread loads 4 consecutive features of one row of each tile
   const int lr = tid >> 2;
@@ -67,10 +63,8 @@ __global__ void __launch_bounds__(kThreads) rbf_tile_kernel(
   const int bc = col0 + lr;
   float na = 0.f, nb = 0.f;
 
-  // compute: thread owns a 4x4 output block
   const int tx = tid & 15;
   const int ty = tid >> 4;
-  float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -96,14 +90,14 @@ __global__ void __launch_bounds__(kThreads) rbf_tile_kernel(
         na = fmaf(av, av * sk, na);
         nb = fmaf(bv, be, nb);
       }
-      As[lk + q][lr] = ae;
-      Bs[lk + q][lr] = be;
+      sm.As[lk + q][lr] = ae;
+      sm.Bs[lk + q][lr] = be;
     }
     __syncthreads();
 #pragma unroll
     for (int k = 0; k < kTileK; ++k) {
-      const float4 ra = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-      const float4 rb = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
+      const float4 ra = *reinterpret_cast<const float4*>(&sm.As[k][ty * 4]);
+      const float4 rb = *reinterpret_cast<const float4*>(&sm.Bs[k][tx * 4]);
       const float av4[4] = {ra.x, ra.y, ra.z, ra.w};
       const float bv4[4] = {rb.x, rb.y, rb.z, rb.w};
 #pragma unroll
@@ -120,24 +114,56 @@ __global__ void __launch_bounds__(kThreads) rbf_tile_kernel(
   nb += __shfl_xor_sync(0xffffffffu, nb, 1);
   nb += __shfl_xor_sync(0xffffffffu, nb, 2);
   if ((tid & 3) == 0) {
-    na_s[lr] = na;
-    nb_s[lr] = nb;
+    sm.na[lr] = na;
+    sm.nb[lr] = nb;
   }
   __syncthreads();
+}
 
+// The Gram value of element (i, j) of the thread's 4x4 block.
+__device__ __forceinline__ float rbf_tile_value(const TileSmem& sm,
+                                                const float (&acc)[4][4],
+                                                float g2, int i, int j) {
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  const float d2 = fmaxf(sm.na[ty * 4 + i] + sm.nb[tx * 4 + j] - 2.f * acc[i][j], 0.f);
+  return g2 * expf(-0.5f * d2);
+}
+
+template <bool SYM>
+__global__ void __launch_bounds__(kThreads) rbf_tile_kernel(
+    const float* __restrict__ a,       // (O, M, D)
+    const float* __restrict__ b,       // (N, D); ignored when SYM
+    const float* __restrict__ scale,   // (H, D): s (SYM) or w (!SYM)
+    const float* __restrict__ gamma2,  // (H,)
+    float* __restrict__ out,           // (H, O, M, N)
+    int O, int M, int N, int D) {
+  __shared__ TileSmem sm;
+
+  const int ho = blockIdx.z;
+  const int h = ho / O;
+  const int o = ho - h * O;
+  const int row0 = blockIdx.y * kTileM;
+  const int col0 = blockIdx.x * kTileN;
+
+  const float* A = a + (size_t)o * M * D;
+  float acc[4][4];
+  rbf_tile_accumulate<SYM>(A, SYM ? A : b, scale + (size_t)h * D, M, N, D,
+                           row0, col0, sm, acc);
+
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
   const float g2 = gamma2[h];
   float* O_ = out + (size_t)ho * M * N;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = row0 + ty * 4 + i;
     if (r >= M) continue;
-    const float nai = na_s[ty * 4 + i];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int c = col0 + tx * 4 + j;
       if (c >= N) continue;
-      const float d2 = fmaxf(nai + nb_s[tx * 4 + j] - 2.f * acc[i][j], 0.f);
-      O_[(size_t)r * N + c] = g2 * expf(-0.5f * d2);
+      O_[(size_t)r * N + c] = rbf_tile_value(sm, acc, g2, i, j);
     }
   }
 }

@@ -1,4 +1,4 @@
-"""Numerical primitives of the sparse-GP math (forward only); counterpart
+"""Numerical primitives of the sparse-GP math; counterpart
 of ``vargp_tpu/gpmath``."""
 
 from vargp_tpu_torch.gpmath.conditional import (

@@ -1,5 +1,5 @@
 """The auto-regressive joint posterior in whitened-factored form, and the
-diagonal predictive marginal read from it (forward only).
+diagonal predictive marginal read from it.
 
 Counterpart of ``ar_joint_posterior_factored`` and
 ``whitened_marginal_diag_factored`` in ``vargp_tpu/gpmath/conditional.py``.
@@ -22,10 +22,14 @@ class ARFactored(NamedTuple):
 
 
 def _diag_blocks(A: torch.Tensor, T: int, M: int) -> torch.Tensor:
-    """(..., T*M, T*M) -> its diagonal M-blocks (..., T, M, M)."""
-    return torch.stack(
-        [A[..., t * M:(t + 1) * M, t * M:(t + 1) * M] for t in range(T)], dim=-3
-    )
+    """(..., T*M, T*M) -> its diagonal M-blocks (..., T, M, M), as a view.
+
+    Its gradient is autograd's ``diagonal`` backward: one (T*M)^2 buffer
+    with the blocks written in, which is what the JAX package's hand rule
+    (``_diag_blocks_bwd``) builds; a stack of T slices would sum T full
+    buffers instead."""
+    blocks = A.unflatten(-1, (T, M)).unflatten(-3, (T, M))  # (..., T, M, T, M)
+    return torch.diagonal(blocks, dim1=-4, dim2=-2).movedim(-1, -3)
 
 
 def ar_joint_posterior_factored(

@@ -1,10 +1,13 @@
-"""Batched dense linear algebra for the sparse-GP math (forward only).
+"""Batched dense linear algebra for the sparse-GP math.
 
 Counterpart of ``vargp_tpu/gpmath/linalg.py``.  Every product is a plain
 f32 ``torch.matmul``: ``vargp_tpu_torch`` turns TF32 off at import, so
 these run at the JAX package's "highest" precision.  The JAX package's
 "high" (bf16x3) products ``mm_h`` / ``mtm_h`` are f32 here too, which is
-at least as accurate.
+at least as accurate.  Their gradients are autograd's, in f32: the JAX
+package's hand rules for them (``_dot_fb``, ``_dot_hh``) only choose the
+backward's precision.  The factorisation below is differentiated as a
+whole by ``ops.dispatch.chol_and_inv``'s rule, never through its parts.
 """
 
 import torch

@@ -1,4 +1,4 @@
-"""Closed-form multivariate-normal operations (forward only).
+"""Closed-form multivariate-normal operations.
 
 Counterpart of ``vargp_tpu/gpmath/mvn.py`` for the two the forward path
 uses: the KL between two MVNs given by scale factors, and the diagonal

@@ -1,8 +1,12 @@
-"""Packed lower-triangular parameterisation (forward only).
+"""Packed lower-triangular parameterisation.
 
 Counterpart of ``vargp_tpu/gpmath/tril.py``: the ``m(m+1)/2`` lower
 entries are packed row-major (``numpy.tril_indices`` order) and the
-diagonal passes through a softplus when unpacking.
+diagonal passes through a softplus when unpacking.  ``vec2tril``'s
+gradient is autograd's: a gather of the packed entries, which is what the
+JAX package's hand rule (``_vec2tril_bwd``) does to avoid a scatter-add.
+The JAX package's "filled" layout, a TPU gather workaround, is not ported:
+the port packs row-major everywhere.
 """
 
 import math

@@ -7,6 +7,7 @@ from vargp_tpu_torch.kernels.rbf import (
     cross_gram,
     default_prior,
     gram_diag,
+    init_rbf,
     kl_hypers,
     sample_hypers,
     sym_gram,
@@ -18,6 +19,7 @@ __all__ = [
     "cross_gram",
     "default_prior",
     "gram_diag",
+    "init_rbf",
     "kl_hypers",
     "sample_hypers",
     "sym_gram",

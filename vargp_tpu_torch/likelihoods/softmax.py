@@ -1,4 +1,4 @@
-"""Monte-Carlo multiclass softmax likelihood (forward only).
+"""Monte-Carlo multiclass softmax likelihood.
 
 Counterpart of ``vargp_tpu/likelihoods/softmax.py``.  The function-sample
 noise ``eps`` (n_hypers, n_f, out_size, B) is an argument.

@@ -1,1 +1,1 @@
-"""Models; counterpart of ``vargp_tpu/models`` (VAR-GP forward only)."""
+"""Models; counterpart of ``vargp_tpu/models`` (VAR-GP, non-DKL)."""

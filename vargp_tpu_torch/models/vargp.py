@@ -1,8 +1,11 @@
-"""VAR-GP forward path: the ELBO value and the predictive probabilities.
+"""VAR-GP: the ELBO pieces, the predictive probabilities and the
+construction of a task's parameters.
 
 Counterpart of ``vargp_tpu/models/vargp.py`` for the non-DKL model with
-the inverse-based solves and the whitened-factored AR posterior, forward
-only.  Every random draw of the path is an explicit tensor in ``noise``:
+the inverse-based solves and the whitened-factored AR posterior.
+``loss`` is differentiable: its gradient runs through the hand rules of
+the Grams and the factorisation and through autograd elsewhere.  Every
+random draw of the path is an explicit tensor in ``noise``:
 
   ``hyper_eps``  (n_var_samples, D+1)        hyper-sample noise
   ``prefix_eps`` (n_var_samples, H, O, c)    prefix draws of u_{<t}, c = S - M
@@ -23,7 +26,9 @@ from vargp_tpu_torch.kernels import (
     RBFParams,
     RBFPrior,
     cross_gram,
+    default_prior,
     gram_diag,
+    init_rbf,
     kl_hypers,
     sample_hypers,
     sym_gram,
@@ -285,3 +290,80 @@ def predict(params: VARGPParams, prev: Sequence[TaskPosterior], x: torch.Tensor,
     out = forward(params, prev, None, x, noise, cfg_eval, with_kl=False,
                   chain_mask=chain_mask)
     return softmax_predict(out.f_mean, out.f_var, noise["lik_eps"])
+
+
+# ---------------------------------------------------------------------------
+# Construction and task chaining
+# ---------------------------------------------------------------------------
+
+
+def median_log_lengthscale(data: torch.Tensor, n_sample: int = 512) -> torch.Tensor:
+    """Log of the median nonzero pairwise distance of the first
+    ``n_sample`` rows (the median of an even count is the mean of the two
+    middle values, as ``jnp.median`` takes it), floored at log(1e-3)."""
+    x = data[:n_sample]
+    d2 = torch.sum(torch.square(x[:, None] - x[None]), dim=-1)
+    med = torch.sqrt(torch.quantile(d2[d2 > 0], 0.5))
+    return torch.log(torch.clamp(med, min=1e-3))
+
+
+def _diag_mask_vec(m: int, device=None) -> torch.Tensor:
+    """Packed row-major (m(m+1)/2,) vector: 1 on the diagonal, 0 elsewhere."""
+    rows, cols = torch.tril_indices(m, m, device=device)
+    return (rows == cols).to(torch.float32)
+
+
+def init_params(kernel_eps: torch.Tensor, u_eps: torch.Tensor, z_init: torch.Tensor,
+                cfg: VARGPConfig, *, kernel_prior_from: RBFParams | None = None,
+                log_lengthscale_init=None) -> tuple[VARGPParams, RBFPrior]:
+    """Trainable parameters of a new task and its kernel prior.
+
+    ``kernel_eps`` (D+1,) and ``u_eps`` (O, M, 1) are the standard-normal
+    draws of the JAX package's ``init_params`` (its kernel and u keys).
+    z_init (O, M, D) are the inducing inputs; the prior chains from the
+    previous task's kernel posterior when given, else it is N(0, I); a
+    given ``log_lengthscale_init`` replaces every log-lengthscale mean.
+    u_tril starts as the packed identity (softplus(1) on the diagonal)."""
+    _check_supported(cfg)
+    kernel = init_rbf(kernel_eps)
+    if log_lengthscale_init is not None:
+        ls = torch.as_tensor(log_lengthscale_init, dtype=kernel.log_mean.dtype,
+                             device=kernel.log_mean.device)
+        ls = torch.broadcast_to(ls, (cfg.in_size,))
+        kernel = kernel._replace(log_mean=torch.cat([ls, kernel.log_mean[-1:]]))
+    if kernel_prior_from is not None:
+        prior = RBFPrior(kernel_prior_from.log_mean, kernel_prior_from.log_logvar)
+    else:
+        prior = default_prior(cfg.in_size, device=z_init.device)
+    u_tril_vec = _diag_mask_vec(cfg.M, device=z_init.device).expand(cfg.out_size, -1)
+    params = VARGPParams(
+        z=z_init, u_mean=0.5 * u_eps, u_tril_vec=u_tril_vec.contiguous(), kernel=kernel,
+    )
+    return params, prior
+
+
+def freeze_task(params: VARGPParams) -> TaskPosterior:
+    """A trained task's chain entry: z, u_mean and the unpacked u_tril,
+    detached copies."""
+    return TaskPosterior(
+        z=params.z.detach().clone(),
+        u_mean=params.u_mean.detach().clone(),
+        u_tril=gpmath.vec2tril(params.u_tril_vec.detach()),
+    )
+
+
+def select_inducing(gen: torch.Generator, data: torch.Tensor, M: int,
+                    out_size: int) -> torch.Tensor:
+    """M random data rows per class head, (out_size, M, D), drawn from
+    ``gen`` on the data's device: without replacement when the data have
+    at least M rows, with replacement when they have fewer (the duplicates
+    are harmless: the jittered factorisation keeps the Gram PD)."""
+    n = data.shape[0]
+    if n >= M:
+        idx = torch.stack([
+            torch.randperm(n, generator=gen, device=data.device)[:M]
+            for _ in range(out_size)
+        ])
+    else:
+        idx = torch.randint(n, (out_size, M), generator=gen, device=data.device)
+    return data[idx]

@@ -31,6 +31,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # name: argument types; every function returns cudaGetLastError()
     "vargp_sym_gram": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "vargp_sym_gram_tri": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "vargp_cross_gram": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "vargp_diag_chol": (_P, _P, _I, _P),
 }

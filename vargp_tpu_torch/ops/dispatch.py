@@ -1,8 +1,10 @@
-"""Kernel dispatch and the forward of the Gram factorisation.
+"""Kernel dispatch and the Gram factorisation with its backward rule.
 
-Counterpart of ``vargp_tpu/ops/dispatch.py``, forward only.  Dispatch is
-by the tensors' device: the kernel wrappers in ``ops.cuda`` launch their
-kernels for CUDA tensors and run their plain versions for CPU tensors.
+Counterpart of ``vargp_tpu/ops/dispatch.py``.  Dispatch is by the
+tensors' device: the kernel wrappers in ``ops.cuda`` launch their kernels
+for CUDA tensors and run their plain versions for CPU tensors.  The
+factorisation takes the JAX package's defaults; it has no environment
+knob.
 """
 
 import torch
@@ -30,7 +32,7 @@ def _pick_block(S: int) -> int | None:
     return best[0] if best else None
 
 
-def chol_and_inv(K: torch.Tensor):
+def _chol_and_inv_fwd(K: torch.Tensor):
     """(chol(K), chol(K)^{-1}) of a batch of SPD matrices (forward of
     ``_chol_and_inv_impl``)."""
     from vargp_tpu_torch.gpmath.linalg import (
@@ -53,3 +55,97 @@ def chol_and_inv(K: torch.Tensor):
             return Lp[..., :S, :S], Xp[..., :S, :S]
     L = _diag_chol(K)
     return L, tri_inv(L)
+
+
+def _chol_bwd_dense(L, Linv, GL, Ginv):
+    """Murray's Cholesky reverse rule with the solves as products with
+    Linv (``_chol_and_inv_bwd``, vargp_tpu/ops/dispatch.py:346-373).  The
+    cotangent of Linv joins through d(L^{-1}) = -L^{-1} dL L^{-1}."""
+    tril = torch.tril(torch.ones(L.shape[-2:], dtype=L.dtype, device=L.device))
+    LinvT = Linv.transpose(-1, -2)
+    GL = GL - torch.matmul(torch.matmul(LinvT, Ginv), LinvT) * tril
+    S = torch.matmul(L.transpose(-1, -2), GL)
+    Phi = S * tril - 0.5 * torch.diag_embed(torch.diagonal(S, dim1=-2, dim2=-1))
+    sym = Phi + Phi.transpose(-1, -2)
+    return 0.5 * torch.matmul(torch.matmul(LinvT, sym), Linv)
+
+
+def _chol_bwd_blocked(L, Linv, GL, Ginv, h: int):
+    """The dense rule on a 2x2 block split at h (``_chol_bwd_blocked``,
+    vargp_tpu/ops/dispatch.py:268-343).  Every operand is lower-triangular
+    and each product reads only lower blocks, so the strictly upper blocks
+    and one mirror of the symmetric result are skipped."""
+    mm = torch.matmul
+
+    def tn(a, b):  # a^T b
+        return mm(a.transpose(-1, -2), b)
+
+    def nt(a, b):  # a b^T
+        return mm(a, b.transpose(-1, -2))
+
+    def lower(b11, b21, b22):  # [[b11, 0], [b21, b22]]
+        top = torch.cat([b11, b11.new_zeros((*b11.shape[:-1], S - h))], dim=-1)
+        return torch.cat([top, torch.cat([b21, b22], dim=-1)], dim=-2)
+
+    S = L.shape[-1]
+    a1, a2, a3 = Linv[..., :h, :h], Linv[..., h:, :h], Linv[..., h:, h:]
+    g1, g2, g3 = Ginv[..., :h, :h], Ginv[..., h:, :h], Ginv[..., h:, h:]
+
+    # extra = -(Linv^T Ginv Linv^T); only its lower blocks survive the tril
+    P11 = nt(g1, a1)
+    P21 = nt(g2, a1)
+    P22 = nt(g2, a2) + nt(g3, a3)
+    E11 = tn(a1, P11) + tn(a2, P21)
+    E21 = tn(a3, P21)
+    E22 = tn(a3, P22)
+    tril = torch.tril(torch.ones((S, S), dtype=L.dtype, device=L.device))
+    B = GL - lower(E11, E21, E22) * tril
+
+    # Phi needs only tril(L^T B)
+    l1, l2, l3 = L[..., :h, :h], L[..., h:, :h], L[..., h:, h:]
+    b1, b2, b3 = B[..., :h, :h], B[..., h:, :h], B[..., h:, h:]
+    S11 = tn(l1, b1) + tn(l2, b2)
+    S21 = tn(l3, b2)
+    S22 = tn(l3, b3)
+    Smat = lower(S11, S21, S22)
+    Phi = Smat * tril - 0.5 * torch.diag_embed(torch.diagonal(Smat, dim1=-2, dim2=-1))
+    sym = Phi + Phi.transpose(-1, -2)
+
+    # K_bar = 0.5 Linv^T sym Linv is symmetric: its upper block is K21^T
+    y1, y21, y3 = sym[..., :h, :h], sym[..., h:, :h], sym[..., h:, h:]
+    Q11 = mm(y1, a1) + tn(y21, a2)
+    Q21 = mm(y21, a1) + mm(y3, a2)
+    Q22 = mm(y3, a3)
+    K11 = tn(a1, Q11) + tn(a2, Q21)
+    K21 = tn(a3, Q21)
+    K22 = tn(a3, Q22)
+    top = torch.cat([K11, K21.transpose(-1, -2)], dim=-1)
+    return 0.5 * torch.cat([top, torch.cat([K21, K22], dim=-1)], dim=-2)
+
+
+class _CholAndInv(torch.autograd.Function):
+    """Forward: K3 on the diagonal blocks glued by products.  Backward: the
+    all-product rule on the saved (L, L^{-1}), split at ``tri_half_split``
+    (S >= 512) as the JAX package's ``_tri_bwd_split`` does by default."""
+
+    @staticmethod
+    def forward(ctx, K):
+        L, Linv = _chol_and_inv_fwd(K)
+        ctx.save_for_backward(L, Linv)
+        return L, Linv
+
+    @staticmethod
+    def backward(ctx, GL, Ginv):
+        from vargp_tpu_torch.gpmath.linalg import tri_half_split
+
+        L, Linv = ctx.saved_tensors
+        h = tri_half_split(L.shape[-1])
+        if h is not None:
+            return _chol_bwd_blocked(L, Linv, GL, Ginv, h)
+        return _chol_bwd_dense(L, Linv, GL, Ginv)
+
+
+def chol_and_inv(K: torch.Tensor):
+    """(chol(K), chol(K)^{-1}) of a batch of SPD matrices, differentiable
+    through the JAX package's hand rule."""
+    return _CholAndInv.apply(K)

@@ -1,8 +1,12 @@
-"""Move parameters and noise given as numpy arrays into the port.
+"""Carry parameters, optimizer state and noise between numpy and the port.
 
 ``params_from_numpy`` reads the JAX package's ``VARGPParams``,
 ``TaskPosterior`` and ``RBFPrior`` by field name, after the caller has run
-``np.asarray`` on every leaf; nothing of the JAX package is imported.
+``np.asarray`` on every leaf; ``opt_state_from_numpy`` reads an optax
+Yogi/Adam state (``count``, ``mu``, ``nu``) the same way.  Nothing of the
+JAX package is imported.  ``params_to_numpy`` and ``opt_state_to_numpy``
+go the other way, to numpy leaves in the JAX package's tree order
+(z, u_mean, u_tril_vec, kernel.log_mean, kernel.log_logvar).
 ``noise_for_loss`` / ``noise_for_predict`` build the ``noise`` dict of
 ``models.vargp`` from the draws the JAX path makes (hyper samples, prefix
 draws, function samples).
@@ -16,11 +20,19 @@ import torch
 from vargp_tpu_torch.kernels import RBFParams, RBFPrior
 from vargp_tpu_torch.models.vargp import TaskPosterior, VARGPParams
 from vargp_tpu_torch.ops.device import resolve_device
+from vargp_tpu_torch.train.optim import OptState, tree_leaves, tree_unflatten
 
 
 def to_tensor(a, device=None) -> torch.Tensor:
     """A contiguous f32 copy of ``a`` on ``device`` (None means the card)."""
     return torch.tensor(np.asarray(a), dtype=torch.float32, device=resolve_device(device))
+
+
+def _vargp_params(tree, t) -> VARGPParams:
+    return VARGPParams(
+        z=t(tree.z), u_mean=t(tree.u_mean), u_tril_vec=t(tree.u_tril_vec),
+        kernel=RBFParams(t(tree.kernel.log_mean), t(tree.kernel.log_logvar)),
+    )
 
 
 def params_from_numpy(params, prev: Sequence = (), prior=None, *, device=None):
@@ -32,13 +44,36 @@ def params_from_numpy(params, prev: Sequence = (), prior=None, *, device=None):
     def t(a):
         return to_tensor(a, dev)
 
-    p = VARGPParams(
-        z=t(params.z), u_mean=t(params.u_mean), u_tril_vec=t(params.u_tril_vec),
-        kernel=RBFParams(t(params.kernel.log_mean), t(params.kernel.log_logvar)),
-    )
+    p = _vargp_params(params, t)
     chain = tuple(TaskPosterior(t(e.z), t(e.u_mean), t(e.u_tril)) for e in prev)
     pr = None if prior is None else RBFPrior(t(prior.log_mean), t(prior.log_logvar))
     return p, chain, pr
+
+
+def opt_state_from_numpy(state, *, device=None) -> OptState:
+    """An optax ``ScaleByAdamState`` (count, and mu / nu of VARGPParams'
+    structure) as the port's ``OptState`` on ``device``."""
+    dev = resolve_device(device)
+    if getattr(state.mu, "phi", None) is not None:
+        raise NotImplementedError("the deep kernel (phi) is not ported yet")
+    count = torch.tensor(np.asarray(state.count), dtype=torch.int32, device=dev)
+    return OptState(
+        count, _vargp_params(state.mu, lambda a: to_tensor(a, dev)),
+        _vargp_params(state.nu, lambda a: to_tensor(a, dev)),
+    )
+
+
+def params_to_numpy(params):
+    """A parameter tree with every leaf as a numpy array, same structure."""
+    return tree_unflatten(params, [t.detach().cpu().numpy() for t in tree_leaves(params)])
+
+
+def opt_state_to_numpy(state: OptState) -> OptState:
+    """``OptState`` with numpy leaves: count (int32 scalar), mu, nu."""
+    return OptState(
+        np.asarray(state.count.cpu().numpy(), dtype=np.int32),
+        params_to_numpy(state.mu), params_to_numpy(state.nu),
+    )
 
 
 def noise_for_loss(hyper_eps, prefix_eps, lik_eps, *, device=None) -> dict:
