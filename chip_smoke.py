@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive vargp_tpu_torch's forward and training paths on one CUDA card and
-check them.
+"""Drive vargp_tpu_torch's forward, training and chain-analysis paths on
+one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -11,36 +11,51 @@ result) on a failure:
 2. the build: every kernel of the paths compiled from ``vargp_tpu_torch/csrc``
    with one ``nvcc`` call;
 3. each kernel (K1 sym-Gram, K2 triangle-skip sym-Gram, K3 diagonal-block
-   Cholesky, K4 cross-Gram) held against its plain PyTorch version on the
-   card, at the shapes of the paths and at a ragged shape; K1 and K2 must
-   be bitwise symmetric, and K3 must give NaN on a non-positive pivot;
+   Cholesky, K4 cross-Gram, K5 generic Gram on pre-scaled inputs) held
+   against its plain PyTorch version on the card, at the shapes of the
+   paths and at a ragged shape; K1, K2 and K5's K_zz (sx == sy) must be
+   bitwise symmetric, and K3 must give NaN on a non-positive pivot;
 4. the forward path: ``loss`` and ``predict`` of the flagship VAR-GP model
    (A, Split-MNIST task 4: a 5-task chain, M=60, 10 classes, D=784, B=512,
    3 hyper samples, 10 function samples; random weights from a numpy seed)
    on the card, with every kernel's launch counter read around it, and the
-   same path on the CPU (plain versions) as the reference;
+   same path on the CPU (plain versions) as the reference; then the same
+   for C, the deep-kernel (DKL) model at A's shapes (phi = 784-256-256-64,
+   so K5 takes both Grams);
 5. the training path, one ``elbo_step`` each at A (padded chain, S=300,
-   Yogi at lr 3e-3, beta 10) and at B (Permuted-MNIST's final task: a
-   10-task chain, M=100, S=1000, lr 3.7e-3, beta 1.64), with the launch
-   counters read around each step; every parameter's ELBO gradient on the
-   card against the CPU's on the same inputs and noise;
-6. training: a ``train_block`` of 20 Yogi steps at A (finite loss at every
-   step; the first 3 steps' ELBO pieces against the same 3 steps on the CPU,
-   with the block's own permutations and noise) and of 5 steps at B;
-7. timings with CUDA events: each kernel, its plain version and one PyTorch
-   yardstick call the port never makes, K1 at B's shape beside K2; ``loss``
-   and ``predict`` end to end; the forward, forward + backward and whole
-   step of training at A and B.
+   Yogi at lr 3e-3, beta 10), at B (Permuted-MNIST's final task: a
+   10-task chain, M=100, S=1000, lr 3.7e-3, beta 1.64) and at C (A's
+   settings under DKL), with the launch counters read around each step;
+   every parameter's ELBO gradient, phi's included, on the card against
+   the CPU's on the same inputs and noise;
+6. training: a ``train_block`` of 20 Yogi steps at A and at C (finite loss
+   at every step; the first 3 steps' ELBO pieces against the same 3 steps
+   on the CPU, with the block's own permutations and noise) and of 5 steps
+   at B;
+7. the chain-reload analysis: a 5-task chain of C's shapes with random
+   weights saved with ``save_chain`` and loaded with ``load_chain``
+   (bitwise), then its 5 x 5 accuracy and entropy matrices over the
+   synthetic Split-MNIST test splits (10,000 rows, made by numpy) at the
+   notebooks' budgets (n_f=50, n_var_samples=20), with one cell's first
+   batch replayed on the CPU from the same draws;
+8. timings: each kernel, its plain version and one PyTorch yardstick call
+   the port never makes, in device time per call (``torch.profiler``), and
+   the kernel also with CUDA events around back-to-back calls; K1 at B's
+   shape beside K2; ``loss`` and ``predict`` end to end; the forward,
+   forward + backward and whole step of training at A, B and C (CUDA
+   events).
 
 The line before the last two is one JSON object ``{"kernels": [...]}``; then
 the card's ``nvidia-smi`` name and power limit; the last line is
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``.  Nothing under ``results/`` is read.
 """
 
+import itertools
 import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -52,12 +67,20 @@ PMNIST_LAST = dict(n_tasks=10, M=100, O=10, D=784, B=512, H=3, n_f=10)
 # the two training configurations, from vargp_tpu/experiments/vargp_run.py:
 # A split_mnist (padded 5-task chain), B permuted_mnist's final task (an
 # unpadded 10-task chain); n_rows is the train block's dataset, one epoch
+# C is split_mnist --dkl=True: A's chain and settings under the deep kernel.
 TRAIN = {
-    "A": dict(shape=FLAGSHIP, lr=3e-3, beta=10.0, padded=True, n_rows=10000,
-              launches={"sym_gram": 1, "sym_gram_tri": 0, "diag_chol": 3, "cross_gram": 1}),
-    "B": dict(shape=PMNIST_LAST, lr=3.7e-3, beta=1.64, padded=False, n_rows=2500,
-              launches={"sym_gram": 0, "sym_gram_tri": 1, "diag_chol": 8, "cross_gram": 1}),
+    "A": dict(shape=FLAGSHIP, lr=3e-3, beta=10.0, padded=True, n_rows=10000, dkl=False,
+              launches={"sym_gram": 1, "sym_gram_tri": 0, "diag_chol": 3, "cross_gram": 1,
+                        "rbf_gram": 0}),
+    "B": dict(shape=PMNIST_LAST, lr=3.7e-3, beta=1.64, padded=False, n_rows=2500, dkl=False,
+              launches={"sym_gram": 0, "sym_gram_tri": 1, "diag_chol": 8, "cross_gram": 1,
+                        "rbf_gram": 0}),
+    "C": dict(shape=FLAGSHIP, lr=3e-3, beta=10.0, padded=True, n_rows=10000, dkl=True,
+              launches={"sym_gram": 0, "sym_gram_tri": 0, "diag_chol": 3, "cross_gram": 0,
+                        "rbf_gram": 2}),
 }
+# the chain-reload analysis at the notebooks' budgets
+ANALYSIS = dict(n_f=50, n_var_samples=20, batch_size=512, seed=5, replay_cell=(1, 0))
 
 # H100 SXM rates for the bound (NVIDIA data sheet): f32 on the CUDA cores
 # and HBM3 bandwidth.
@@ -79,6 +102,11 @@ TOL_PROBS = 1e-4
 # Gradients, card against CPU: the same rounding through the backward's
 # products; each leaf against its largest magnitude.
 TOL_GRAD_REL = 1e-3
+# Under DKL the last bias of phi shifts every feature alike and the RBF
+# kernel sees only feature differences: its gradient is exactly 0 and both
+# devices return rounding noise there.  It is held to 0, within
+# TOL_GRAD_REL of phi's largest bias gradient.
+SHIFT_LEAF = ".phi.biases[2]"
 
 
 def nvidia_smi_line() -> str:
@@ -103,6 +131,26 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` per call: the summed durations of the
+    kernels it launches, traced by ``torch.profiler`` over ``reps`` calls
+    after warm-up.  Unlike ``time_ms`` it leaves out the host's time between
+    launches, which a kernel of a few microseconds cannot hide."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError("the profiler traced no device time")
+    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
 
 
 def bound(flops: float, nbytes: float):
@@ -149,18 +197,23 @@ def spd_blocks(rng, G, device):
     return torch.tensor(K, device=device)
 
 
-def flagship_model(device, seed=SEED, shape=FLAGSHIP):
+def flagship_model(device, seed=SEED, shape=FLAGSHIP, dkl=False):
     """The flagship configuration (or ``shape``'s) with random weights from
     ``seed``.  Inputs are N(0, 0.01) and the lengthscales start near the
     median pairwise distance (sqrt(2 * 784 * 0.01) ~ 4), so every Gram
-    entry is O(1) rather than exp(-30)."""
+    entry is O(1) rather than exp(-30).  Under ``dkl`` the feature map is
+    torch.nn.Linear's init from uniform draws, and the 64 lengthscales
+    start near the median distance of the chain's features (the experiment
+    scripts' ``ls_init='median'``)."""
     from vargp_tpu_torch.gpmath import vec2tril
-    from vargp_tpu_torch.kernels import RBFParams, default_prior
+    from vargp_tpu_torch.kernels import RBFParams, default_prior, init_mlp, mlp_apply
     from vargp_tpu_torch.models import vargp as V
     from vargp_tpu_torch.utils.convert import noise_for_loss, noise_for_predict
 
     f = shape
     O, M, D, B, H, n_f = f["O"], f["M"], f["D"], f["B"], f["H"], f["n_f"]
+    cfg = V.VARGPConfig(M=M, out_size=O, in_size=D, n_f=n_f, n_var_samples=H, dkl=dkl)
+    P = V._theta_size(cfg)
     rng = np.random.default_rng(seed)
     f32 = np.float32
     t = lambda a: torch.tensor(np.asarray(a, f32), device=device)
@@ -175,21 +228,37 @@ def flagship_model(device, seed=SEED, shape=FLAGSHIP):
     )
     rows, cols = np.tril_indices(M)
     u_tril_vec = np.where(rows == cols, 1.0, 0.0) + 0.05 * rng.standard_normal((O, n_tri))
+    phi = None
+    if dkl:
+        dims = [D, 256, 256, P]
+        draws = []
+        for a, b in zip(dims, dims[1:]):
+            draws += [rng.random((a, b)), rng.random(b)]
+        phi = init_mlp([t(u) for u in draws], D)
+        # the median feature distance of the chain's first 512 rows, taken
+        # on the CPU so that every device starts from the same value
+        cpu_phi = init_mlp([torch.tensor(u, dtype=torch.float32) for u in draws], D)
+        zs = torch.cat([p.z.cpu() for p in prev], dim=-2).reshape(-1, D)[:512]
+        feats = mlp_apply(cpu_phi, zs).double()
+        d2 = torch.sum((feats[:, None] - feats[None]) ** 2, dim=-1)
+        log_ls = float(torch.log(torch.sqrt(torch.median(d2[d2 > 0]))))
+    else:
+        log_ls = np.log(4.0)
     log_mean = np.concatenate(
-        [np.log(4.0) + 0.05 * rng.standard_normal(D), [np.log(0.5)]]
+        [log_ls + 0.05 * rng.standard_normal(P), [np.log(0.5)]]
     )
     params = V.VARGPParams(
         z=t(rng.standard_normal((O, M, D)) * 0.1),
         u_mean=t(0.5 * rng.standard_normal((O, M, 1))),
         u_tril_vec=t(u_tril_vec),
-        kernel=RBFParams(log_mean=t(log_mean), log_logvar=t(np.full(D + 1, -2.0))),
+        kernel=RBFParams(log_mean=t(log_mean), log_logvar=t(np.full(P + 1, -2.0))),
+        phi=phi,
     )
-    prior = default_prior(D, device=device)
-    cfg = V.VARGPConfig(M=M, out_size=O, in_size=D, n_f=n_f, n_var_samples=H)
+    prior = default_prior(P, device=device)
     x = t(rng.standard_normal((B, D)) * 0.1)
     y = torch.tensor(rng.integers(0, O, B), device=device)
     c = (f["n_tasks"] - 1) * M
-    hyper_eps = rng.standard_normal((H, D + 1))
+    hyper_eps = rng.standard_normal((H, P + 1))
     prefix_eps = rng.standard_normal((H, H, O, c))
     lik_eps = rng.standard_normal((H, n_f, O, B))
     pred_lik_eps = rng.standard_normal((H, n_f, O, B))
@@ -298,7 +367,46 @@ def check_k2(dev):
     return err, flag
 
 
-KERNELS = ("sym_gram", "sym_gram_tri", "diag_chol", "cross_gram")  # module == wrapper name
+def check_k5(dev):
+    """K5 against its plain version on the card at C's two shapes (K_zz:
+    sx == sy, G = H*O = 30, 300 rows of 64 features; K_zx: against 512
+    rows) and at a ragged one; K_zz must be bitwise symmetric.  Returns the
+    largest error and C's inputs for timing."""
+    from vargp_tpu_torch.ops.cuda.rbf_gram import rbf_gram, rbf_gram_plain
+
+    f = FLAGSHIP
+    G, S, B, F = f["H"] * f["O"], f["n_tasks"] * f["M"], f["B"], 64
+    rng = np.random.default_rng(SEED + 4)
+    t = lambda a: torch.tensor(a.astype(np.float32), device=dev)
+    # features ~ N(0, 1/(2F)): squared distances near 1, Gram values O(1)
+    sz = t(rng.standard_normal((G, S, F)) / math.sqrt(2 * F))
+    sx = t(rng.standard_normal((G, B, F)) / math.sqrt(2 * F))
+    g2 = t(np.exp(rng.standard_normal(G) * 0.2))
+    err, flag = 0.0, dict(sz=sz, sx=sx, g2=g2)
+    for label, a, b, g in (
+        ("C K_zz", sz, sz, g2), ("C K_zx", sz, sx, g2),
+        ("ragged", t(rng.standard_normal((3, 37, F)) * 0.1), t(rng.standard_normal((3, 70, F)) * 0.1),
+         g2[:3]),
+    ):
+        before = rbf_gram.launches
+        K = rbf_gram(a, b, g)
+        torch.cuda.synchronize()
+        if rbf_gram.launches != before + 1:
+            raise AssertionError("K5's launch counter did not count its launch")
+        ref = rbf_gram_plain(a, b, g)
+        e = max_abs_err(K, ref)
+        check(f"K5 rbf_gram {label} {tuple(K.shape)}", e, TOL_GRAM * float(g.max()),
+              float(ref.abs().max()))
+        if a is b:
+            asym = max_abs_err(K, K.transpose(-1, -2))
+            print(f"  K5 K_zz symmetry: max |K - K^T| = {asym!r} (bitwise symmetric: {asym == 0.0})")
+            if asym != 0.0:
+                raise AssertionError("K5's K_zz (sx == sy) is not exactly symmetric")
+        err = max(err, e)
+    return err, flag
+
+
+KERNELS = ("sym_gram", "sym_gram_tri", "diag_chol", "cross_gram", "rbf_gram")  # module == wrapper name
 
 
 def wrappers() -> dict:
@@ -317,14 +425,125 @@ def read_counts():
     return {n: w.launches for n, w in wrappers().items()}
 
 
-def run_slice(device):
-    """loss and predict of the flagship model on ``device``."""
+def run_slice(device, dkl=False):
+    """loss and predict of the flagship model (C's under ``dkl``) on
+    ``device``."""
     from vargp_tpu_torch.models import vargp as V
 
-    cfg, params, prev, prior, x, y, noise, pnoise = flagship_model(device)
+    cfg, params, prev, prior, x, y, noise, pnoise = flagship_model(device, dkl=dkl)
     out = V.loss(params, prev, prior, x, y, noise, cfg, device=device)
     probs = V.predict(params, prev, x, pnoise, cfg, device=device)
     return [float(v) for v in out], probs
+
+
+def check_forward(name, dev):
+    """loss + predict at A or C on the card, with the launches counted (each
+    call builds one posterior: twice the step's forward launches), against
+    the same on the CPU.  Returns the launches."""
+    dkl = TRAIN[name]["dkl"]
+    print(f"forward path (loss + predict, {name}{', deep kernel' if dkl else ''}, flagship width):")
+    reset_counts()
+    pieces, probs = run_slice(dev, dkl=dkl)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"  launches: {launches}")
+    want = {k: 2 * v for k, v in TRAIN[name]["launches"].items()}
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches} on the forward path, expected {want}")
+    check_outputs("card", pieces, probs)
+    cpu_pieces, cpu_probs = run_slice(torch.device("cpu"), dkl=dkl)
+    check_outputs("cpu", cpu_pieces, cpu_probs)
+    for n, g, c in zip(("kl_hypers", "kl_u", "nll"), pieces, cpu_pieces):
+        rel = abs(g - c) / max(abs(c), 1e-30)
+        print(f"  {name} {n}: card {g!r} cpu {c!r} rel err {rel:.3e} (tol {TOL_E2E_REL:.0e})")
+        if not rel <= TOL_E2E_REL:
+            raise AssertionError(f"{name} {n}: card and CPU differ by {rel} (relative)")
+    check(f"{name} predict probabilities, card vs CPU", max_abs_err(probs.cpu(), cpu_probs),
+          TOL_PROBS, float(cpu_probs.max()))
+    return launches
+
+
+def analysis_chain(device):
+    """A 5-task chain of C's shapes, each task's parameters drawn as
+    ``flagship_model`` draws C's, from seeds of their own."""
+    chain = []
+    for k in range(FLAGSHIP["n_tasks"]):
+        cfg, params, *_ = flagship_model(device, seed=SEED + 100 + k, dkl=True)
+        chain.append(params)
+    return cfg, chain
+
+
+def check_analysis(dev):
+    """The chain round trip through ``save_chain`` / ``load_chain``
+    (bitwise), the analysis matrices on the card with the launches
+    counted, and one cell's first batch replayed on the CPU."""
+    from vargp_tpu_torch import data
+    from vargp_tpu_torch.experiments import analysis as A
+    from vargp_tpu_torch.models import vargp as V
+    from vargp_tpu_torch.train.optim import tree_leaves
+    from vargp_tpu_torch.utils.checkpoint import load_chain, save_chain
+    from vargp_tpu_torch.utils.convert import params_from_numpy
+
+    cfg, chain = analysis_chain(dev)
+    T = len(chain)
+    with tempfile.TemporaryDirectory() as d:
+        for k, p in enumerate(chain):
+            save_chain(d, k, p)
+        loaded = load_chain(d, T, A.params_template(cfg))
+    for k, (p, q) in enumerate(zip(chain, loaded)):
+        for n, a, b in zip(leaf_names(p), tree_leaves(p), tree_leaves(q)):
+            if not np.array_equal(a.cpu().numpy(), b):
+                raise AssertionError(f"task {k} leaf {n} changed in the save/load round trip")
+    print(f"  save_chain / load_chain of {T} tasks ({len(tree_leaves(chain[0]))} leaves each): bitwise")
+    chain = [params_from_numpy(q, device=dev)[0] for q in loaded]
+
+    t0 = time.perf_counter()
+    test_full = data.load_mnist(None, train=False)  # no IDX files: the surrogate
+    test_sets = [data.filter_by_class(test_full, [2 * t, 2 * t + 1]) for t in range(T)]
+    t_data = time.perf_counter() - t0
+    a = ANALYSIS
+    reset_counts()
+    t0 = time.perf_counter()
+    acc, ent = A.accuracy_entropy_matrices(chain, cfg, test_sets, seed=a["seed"], n_f=a["n_f"],
+                                           n_var_samples=a["n_var_samples"],
+                                           batch_size=a["batch_size"], device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    n_batches = sum(-(-len(ts) // a["batch_size"]) for ts in test_sets) * T
+    print(f"  test splits: {[len(ts) for ts in test_sets]} rows, made in {t_data:.3f} s")
+    print(f"  accuracy matrix: {np.round(acc, 4).tolist()}")
+    print(f"  entropy matrix: {np.round(ent, 4).tolist()}")
+    print(f"  analysis wall time {wall:.3f} s for {n_batches} predict calls at H={a['n_var_samples']}, "
+          f"n_f={a['n_f']}; launches {launches}")
+    if acc.shape != (T, T) or not (np.isfinite(acc).all() and np.isfinite(ent).all()):
+        raise AssertionError("analysis: matrices of the wrong shape or not finite")
+    if acc.min() < 0 or acc.max() > 1 or ent.min() < 0 or ent.max() > 1 + 1e-6:
+        raise AssertionError("analysis: accuracy or normalised entropy outside [0, 1]")
+    want = {k: 0 for k in KERNELS}
+    want.update(rbf_gram=2 * n_batches, diag_chol=3 * n_batches)
+    if launches != want:
+        raise AssertionError(f"analysis: launches {launches}, expected {want}")
+
+    # one cell's first batch again, card and CPU, from the cell's own draws
+    t, s = a["replay_cell"]
+    cfg_eval = V.eval_budget_cfg(cfg, n_f=a["n_f"], n_var_samples=a["n_var_samples"])
+    draws = A.eval_draws(torch.Generator(device=dev).manual_seed(a["seed"]), cfg_eval, T * T,
+                         a["batch_size"])
+    noise = next(itertools.islice(draws, t * T + s, None))
+    x = next(data.eval_batches(test_sets[s], a["batch_size"])).x
+    cpu_chain = [params_from_numpy(q, device="cpu")[0] for q in loaded]
+    probs = {}
+    for where, ch, nz in (("card", chain, noise),
+                          ("cpu", cpu_chain, {k: v.cpu() for k, v in noise.items()})):
+        device = torch.device("cuda" if where == "card" else "cpu")
+        prev, mask = V.pad_chain(tuple(V.freeze_task(p) for p in ch[:t]), cfg, T, device=device)
+        with torch.no_grad():
+            probs[where] = V.predict(ch[t], prev, torch.from_numpy(x).to(device), nz, cfg_eval,
+                                     chain_mask=mask, device=device).cpu()
+    check(f"analysis cell {(t, s)} first batch, card vs CPU", max_abs_err(probs["card"], probs["cpu"]),
+          TOL_PROBS, float(probs["cpu"].max()))
+    return dict(acc=acc, ent=ent, wall_s=wall, launches=launches, predicts=n_batches)
 
 
 def check_outputs(where, pieces, probs):
@@ -346,7 +565,8 @@ def train_inputs(name, device):
     from vargp_tpu_torch.train import loop as TL
 
     spec = TRAIN[name]
-    cfg, params, prev, prior, x, y, noise, _ = flagship_model(device, shape=spec["shape"])
+    cfg, params, prev, prior, x, y, noise, _ = flagship_model(device, shape=spec["shape"],
+                                                              dkl=spec["dkl"])
     mask = None
     if spec["padded"]:  # every slot of the padded chain holds a real task
         prev, mask = V.pad_chain(prev, cfg, len(prev) + 1, device=device)
@@ -403,25 +623,40 @@ def check_train_step(name, dev):
         print(f"  {name} {n}: card {g!r} cpu {r!r} rel err {rel:.3e} (tol {TOL_E2E_REL:.0e})")
         if not rel <= TOL_E2E_REL:
             raise AssertionError(f"{name} {n}: card and CPU differ by {rel} (relative)")
-    for leaf, g, r in zip(("z", "u_mean", "u_tril_vec", "log_mean", "log_logvar"), grads, cpu_grads):
-        scale = float(r.abs().max())
-        rel = max_abs_err(g.cpu(), r) / max(scale, 1e-30)
-        print(f"  {name} d ELBO / d {leaf}: max abs err / largest magnitude {rel:.3e} "
-              f"(largest {scale:.3e}, tol {TOL_GRAD_REL:.0e})")
+    names = leaf_names(t["params"])
+    bias_scale = max((float(r.abs().max()) for n, r in zip(names, cpu_grads)
+                      if n.startswith(".phi.biases") and n != SHIFT_LEAF), default=0.0)
+    for leaf, g, r in zip(names, grads, cpu_grads):
+        if leaf == SHIFT_LEAF:  # exactly 0: both devices against 0
+            rel = max(float(g.abs().max()), float(r.abs().max())) / max(bias_scale, 1e-30)
+            print(f"  {name} d ELBO / d {leaf}: largest magnitude on either device / phi's "
+                  f"largest bias gradient {rel:.3e} (the exact value is 0; tol {TOL_GRAD_REL:.0e})")
+        else:
+            scale = float(r.abs().max())
+            rel = max_abs_err(g.cpu(), r) / max(scale, 1e-30)
+            print(f"  {name} d ELBO / d {leaf}: max abs err / largest magnitude {rel:.3e} "
+                  f"(largest {scale:.3e}, tol {TOL_GRAD_REL:.0e})")
         if not (rel <= TOL_GRAD_REL and bool(torch.isfinite(g).all())):
             raise AssertionError(f"{name}: gradient of {leaf} differs from the CPU's by {rel}")
     return launches
 
 
-def check_training(dev):
-    """Train blocks on the card: 20 steps at A, checked against the CPU on
-    the first 3, and 5 steps at B.  Returns each block's launches."""
-    import itertools
+def leaf_names(tree):
+    """The key paths of a parameter tree's leaves, in the JAX package's
+    order (``.z``, ..., ``.phi.biases[2]``)."""
+    from vargp_tpu_torch.utils.checkpoint import flatten_with_paths
 
+    return [k for k, _ in flatten_with_paths(tree)]
+
+
+def check_training(dev):
+    """Train blocks on the card: 20 steps at A and at C, each checked
+    against the CPU on its first 3, and 5 steps at B.  Returns each
+    block's launches."""
     from vargp_tpu_torch.train import loop as TL
 
     out = {}
-    for name, seed in (("A", 11), ("B", 12)):
+    for name, seed in (("A", 11), ("B", 12), ("C", 13)):
         t = train_inputs(name, dev)
         dx, dy, dw = t["data"]
         B = t["x"].shape[0]
@@ -437,7 +672,7 @@ def check_training(dev):
               f"losses {[round(float(v), 4) for v in losses]}")
         if not bool(torch.isfinite(losses).all()):
             raise AssertionError(f"{name}: a non-finite loss in the train block")
-        if name != "A":
+        if name == "B":
             continue
         # the block's first 3 steps again on the CPU: the same permutation
         # and noise, drawn again on the card from the same seed
@@ -456,20 +691,20 @@ def check_training(dev):
                 chain_mask=c["mask"], device="cpu")
             for n, g, r in zip(("kl_hypers", "kl_u", "nll"), pieces[k].tolist(), aux):
                 rel = abs(g - float(r)) / max(abs(float(r)), 1e-30)
-                print(f"  A step {k} {n}: card {g!r} cpu {float(r)!r} rel err {rel:.3e}")
+                print(f"  {name} step {k} {n}: card {g!r} cpu {float(r)!r} rel err {rel:.3e}")
                 if not rel <= TOL_E2E_REL:
-                    raise AssertionError(f"A step {k} {n}: card and CPU differ by {rel}")
+                    raise AssertionError(f"{name} step {k} {n}: card and CPU differ by {rel}")
     return out
 
 
 def time_training(dev):
-    """ms per forward, forward + backward and whole step, at A and B."""
+    """ms per forward, forward + backward and whole step, at A, B and C."""
     from vargp_tpu_torch.models import vargp as V
 
     out = {}
     for name in TRAIN:
         t = train_inputs(name, dev)
-        reps = 10 if name == "A" else 5
+        reps = 5 if name == "B" else 10
 
         def fwd():
             with torch.no_grad():
@@ -498,6 +733,7 @@ def main() -> int:
     from vargp_tpu_torch.ops.cuda import build
     from vargp_tpu_torch.ops.cuda.cross_gram import cross_gram, cross_gram_plain
     from vargp_tpu_torch.ops.cuda.diag_chol import diag_chol, diag_chol_plain
+    from vargp_tpu_torch.ops.cuda.rbf_gram import rbf_gram, rbf_gram_plain
     from vargp_tpu_torch.ops.cuda.sym_gram import sym_gram, sym_gram_plain
     from vargp_tpu_torch.ops.cuda.sym_gram_tri import sym_gram_tri
 
@@ -509,34 +745,19 @@ def main() -> int:
     print("kernels against their plain versions on the card:")
     errs, flag = check_kernels(dev)
     errs["sym_gram_tri"], flag_b = check_k2(dev)
+    errs["rbf_gram"], flag_c = check_k5(dev)
 
-    print("forward path (loss + predict, flagship width):")
-    reset_counts()
-    pieces, probs = run_slice(dev)
-    torch.cuda.synchronize()
-    launches = read_counts()
-    print(f"  launches: {launches}")
-    for name, least in (("sym_gram", 2), ("diag_chol", 6), ("cross_gram", 2)):
-        if launches[name] < least:
-            raise AssertionError(f"{name}: {launches[name]} launches on the forward path, expected >= {least}")
-    check_outputs("card", pieces, probs)
-    cpu_pieces, cpu_probs = run_slice(torch.device("cpu"))
-    check_outputs("cpu", cpu_pieces, cpu_probs)
-    names = ("kl_hypers", "kl_u", "nll")
-    for n, g, c in zip(names, pieces, cpu_pieces):
-        rel = abs(g - c) / max(abs(c), 1e-30)
-        print(f"  {n}: card {g!r} cpu {c!r} rel err {rel:.3e} (tol {TOL_E2E_REL:.0e})")
-        if not rel <= TOL_E2E_REL:
-            raise AssertionError(f"{n}: card and CPU differ by {rel} (relative)")
-    check("predict probabilities, card vs CPU", max_abs_err(probs.cpu(), cpu_probs), TOL_PROBS,
-          float(cpu_probs.max()))
+    forward_launches = {name: check_forward(name, dev) for name in ("A", "C")}
 
-    print("training path (one elbo_step each at A and B; gradients, card vs CPU):")
+    print("training path (one elbo_step each at A, B and C; gradients, card vs CPU):")
     step_launches = {name: check_train_step(name, dev) for name in TRAIN}
     print("training (train blocks on the card):")
     block_launches = check_training(dev)
 
-    print("timings (CUDA events, ms per call):")
+    print("chain-reload analysis (C's shapes, synthetic Split-MNIST test splits):")
+    analysis = check_analysis(dev)
+
+    print("timings (ms per call):")
     z, x, invs, invs2, gamma2, spd = (flag[k] for k in ("z", "x", "invs", "invs2", "gamma2", "spd"))
     H, (O, S, D), B, G = invs.shape[0], z.shape, x.shape[0], spd.shape[0]
     sz = (z[None] * invs[:, None, None, :]).reshape(H * O, S, D)
@@ -582,21 +803,50 @@ def main() -> int:
         flops=1.0 * Hb * Ob * Sb * (Sb + 1) * Db,
         nbytes=4.0 * (Ob * Sb * Db + 2 * Hb * Db + Hb + Hb * Ob * Sb * Sb),
     ))
+    # K5: the two Grams of a C step, K_zz (sx is sy: S(S+1)/2 distinct
+    # entries, sx read once) and K_zx, timed and bounded together
+    sc, xc, g2c = (flag_c[k] for k in ("sz", "sx", "g2"))
+    Gc, Sc, Fc = sc.shape
+    Bc = xc.shape[1]
+    g3c = g2c[:, None, None]
+    k5 = {
+        "K_zz": (lambda: rbf_gram(sc, sc, g2c), lambda: rbf_gram_plain(sc, sc, g2c),
+                 lambda: g3c * torch.exp(-0.5 * torch.cdist(sc, sc).square())),
+        "K_zx": (lambda: rbf_gram(sc, xc, g2c), lambda: rbf_gram_plain(sc, xc, g2c),
+                 lambda: g3c * torch.exp(-0.5 * torch.cdist(sc, xc).square())),
+    }
+    entries.append(dict(
+        name="rbf_gram", route="cuda", source="vargp_tpu_torch/csrc/rbf_gram.cu",
+        replaces="vargp_tpu/ops/pallas/rbf_gram.py:47",
+        fn=lambda: [f[0]() for f in k5.values()], plain=lambda: [f[1]() for f in k5.values()],
+        library=lambda: [f[2]() for f in k5.values()],
+        flops=1.0 * Gc * Sc * (Sc + 1) * Fc + 2.0 * Gc * Sc * Bc * Fc,
+        nbytes=4.0 * (Gc * Sc * Fc + Gc + Gc * Sc * Sc) + 4.0 * (Gc * Sc * Fc + Gc * Bc * Fc + Gc + Gc * Sc * Bc),
+    ))
+    for label, (fn, plain, lib) in k5.items():
+        print(f"  rbf_gram (K5) {label} alone, device time: kernel {device_ms(fn):.4f}  plain "
+              f"{device_ms(plain, reps=5, warmup=1):.4f}  yardstick {device_ms(lib):.4f}")
     kernels = []
+    # ms, plain_ms, library_ms: device time per call (device_ms); event_ms:
+    # CUDA events around back-to-back calls, the wrapper's host time included
     for e in entries:
-        ms, plain_ms, lib_ms = time_ms(e["fn"]), time_ms(e["plain"], reps=5, warmup=1), time_ms(e["library"])
+        ms, plain_ms, lib_ms = device_ms(e["fn"]), device_ms(e["plain"], reps=5, warmup=1), \
+            device_ms(e["library"])
+        event_ms = time_ms(e["fn"])
         b_ms, b_by = bound(e["flops"], e["nbytes"])
         n = e["name"]
         per_step = {k: v[n] for k, v in step_launches.items()}
-        print(f"  {n}: kernel {ms:.4f}  plain {plain_ms:.4f}  yardstick {lib_ms:.4f}  "
+        print(f"  {n}: kernel {ms:.4f} (events {event_ms:.4f})  plain {plain_ms:.4f}  "
+              f"yardstick {lib_ms:.4f}  "
               f"bound {b_ms:.5f} ({b_by})  launches per train step {per_step}, "
-              f"per forward {launches[n]}, per train block "
-              f"{ {k: v[n] for k, v in block_launches.items()} }")
+              f"per forward (loss + predict) { {k: v[n] for k, v in forward_launches.items()} }, "
+              f"per train block { {k: v[n] for k, v in block_launches.items()} }, "
+              f"in the analysis {analysis['launches'][n]}")
         kernels.append({
             "name": n, "route": e["route"], "source": e["source"], "replaces": e["replaces"],
-            # launches: the two counted train steps (A, then B)
+            # launches: the three counted train steps (A, B, C)
             "launches": sum(per_step.values()), "launches_per_step": per_step,
-            "max_abs_err": errs[n], "ms": ms,
+            "max_abs_err": errs[n], "ms": ms, "event_ms": event_ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
         })
     print(f"  sym_gram (K1) at B's shape {tuple(szb.shape)}: "
@@ -604,20 +854,22 @@ def main() -> int:
 
     from vargp_tpu_torch.models import vargp as V
 
-    cfg, params, prev, prior, xx, yy, noise, pnoise = flagship_model(dev)
-    for label, fn in (
-        ("loss", lambda: V.loss(params, prev, prior, xx, yy, noise, cfg)),
-        ("predict", lambda: V.predict(params, prev, xx, pnoise, cfg)),
-    ):
-        for _ in range(2):
-            fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        reps = 10
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        print(f"  {label} end to end: {(time.perf_counter() - t0) / reps * 1e3:.4f} ms (host clock, synchronised)")
+    for name in ("A", "C"):
+        cfg, params, prev, prior, xx, yy, noise, pnoise = flagship_model(dev, dkl=TRAIN[name]["dkl"])
+        for label, fn in (
+            ("loss", lambda: V.loss(params, prev, prior, xx, yy, noise, cfg)),
+            ("predict", lambda: V.predict(params, prev, xx, pnoise, cfg)),
+        ):
+            for _ in range(2):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reps = 10
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            print(f"  {name} {label} end to end: {(time.perf_counter() - t0) / reps * 1e3:.4f} ms "
+                  f"(host clock, synchronised)")
     time_training(dev)
     print(f"total: {time.perf_counter() - t_start:.1f} s")
 

@@ -4,7 +4,8 @@
     python3 scripts/profile_torch_train.py
 
 For each training configuration of ``chip_smoke.py`` (A: Split-MNIST's
-flagship step, S=300; B: Permuted-MNIST's final task, S=1000) it runs,
+flagship step, S=300; B: Permuted-MNIST's final task, S=1000; C: A under
+the deep kernel, phi = 784-256-256-64) it runs,
 after a warm-up and under ``torch.profiler``: the ELBO forward alone (no
 graph), the forward with the backward (every parameter's gradient), and
 the whole ``elbo_step`` (forward, backward, Yogi update).  For each it

@@ -2,6 +2,8 @@
 parameters and data handed to the JAX package and to vargp_tpu_torch, and
 the JAX package's own noise replayed for the port."""
 
+from dataclasses import replace
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -13,6 +15,12 @@ from vargp_tpu_torch.models import vargp as TV
 from vargp_tpu_torch.utils import convert
 
 f32 = np.float32
+
+# The suite runs its files in several worker processes on shared cores,
+# and torch's OpenMP threads spin while they wait for each other: one
+# intra-op thread per process (set when the test files are collected)
+# runs the port's tests several times faster there.
+torch.set_num_threads(1)
 
 # S = 3 x 64 = 192 (blocked 2 x 96), padded S = 4 x 64 = 256 (2 x 128);
 # S = 4 x 128 = 512 takes K2 and the triangle-skip Cholesky backward
@@ -54,6 +62,28 @@ def build(size: str, seed: int = 0) -> dict:
                 dims=d)
 
 
+# The JAX package's random MLP maps these inputs to features 0.05 apart,
+# where K_zz is nearly singular (kl_u ~ 1e5) and f32 rounding in either
+# package moves the ELBO by 2e-5 relative.  Scaling the last layer by 4
+# spreads the features as the plain model's inputs are spread (kl_u ~ 1e3).
+PHI_GAIN = 4.0
+
+
+def build_dkl(size: str = "small", seed: int = 0) -> dict:
+    """``build``'s case under the deep kernel: the JAX package's own
+    ``init_params`` (phi from its ``init_mlp``), the last layer scaled by
+    PHI_GAIN, the same perturbed scale factor and prior shift."""
+    m = build(size, seed)
+    cfg, tcfg = replace(m["cfg"], dkl=True), replace(m["tcfg"], dkl=True)
+    params, prior = JV.init_params(jax.random.key(seed), m["params"].z, cfg)
+    phi = params.phi
+    phi = phi._replace(weights=(*phi.weights[:-1], phi.weights[-1] * PHI_GAIN),
+                       biases=(*phi.biases[:-1], phi.biases[-1] * PHI_GAIN))
+    params = params._replace(u_tril_vec=m["params"].u_tril_vec, phi=phi)
+    prior = prior._replace(log_mean=prior.log_mean + 0.3)
+    return dict(m, cfg=cfg, tcfg=tcfg, params=params, prior=prior)
+
+
 def chain(m: dict, case: str):
     """(prev, chain_mask) of the JAX side: the whole chain, no chain
     (task 0), or the chain padded by one inert slot."""
@@ -68,12 +98,12 @@ def jax_draws(m: dict, key, c: int):
     """The draws ``JV.loss`` makes from ``key``: hyper samples, prefix draws
     of u_{<t} (with a chain of c rows) and function samples."""
     d, cfg = m["dims"], m["cfg"]
-    O, D, B, N_F = d["O"], d["D"], d["B"], d["N_F"]
+    O, B, N_F = d["O"], d["B"], d["N_F"]
     n_v = cfg.n_var_samples
     H = 1 if cfg.map_est_hypers else n_v  # MAP draws no hypers: the port ignores them
     k_fwd, k_lik = jax.random.split(key)
     k_hyp, k_u = jax.random.split(k_fwd)
-    hyper = jax.random.normal(k_hyp, (n_v, D + 1), jnp.float32)
+    hyper = jax.random.normal(k_hyp, (n_v, JV._theta_size(cfg) + 1), jnp.float32)
     prefix = jax.random.normal(k_u, (n_v, H, O, c), jnp.float32) if c else None
     lik = jax.random.normal(k_lik, (H, N_F, O, B), jnp.float32)
     return hyper, prefix, lik

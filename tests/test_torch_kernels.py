@@ -1,7 +1,8 @@
-"""The plain versions of K1 and K2 (sym-Gram), K4 (cross-Gram), the
-Grams' backward rules, and the kernel, likelihood and hyper-sample
-functions around them, against the JAX package on the CPU; the Grams also
-against the Pallas kernels run in interpret mode.
+"""The plain versions of K1 and K2 (sym-Gram), K4 (cross-Gram) and K5
+(generic Gram on pre-scaled inputs), the Grams' backward rules, and the
+kernel, likelihood and hyper-sample functions around them, against the
+JAX package on the CPU; the Grams also against the Pallas kernels run in
+interpret mode.
 
 Tolerances: Gram values lie in (0, gamma2] and both sides compute the
 squared distance in f32 through the norm expansion, so they differ by
@@ -9,7 +10,8 @@ summation order only (1e-6 relative).  The Pallas cross-Gram in its
 production precision emulates a bf16x3 product, which moves the squared
 distance by about 1e-5 relative: its bound is 1e-4.  The backward rules
 are the same products on the same f32 inputs in another association:
-each cotangent is held to 1e-5 of its largest magnitude.
+each cotangent is held to 1e-5 of its largest magnitude.  K5 and its
+rule are held to 1e-5 relative, as the other Grams.
 """
 
 import functools
@@ -26,7 +28,9 @@ from vargp_tpu.kernels import rbf as jrbf
 from vargp_tpu.likelihoods import softmax as jsoft
 from vargp_tpu_torch.kernels import rbf as trbf
 from vargp_tpu_torch.likelihoods import softmax as tsoft
+from vargp_tpu_torch.ops import dispatch as tdispatch
 from vargp_tpu_torch.ops.cuda.cross_gram import cross_gram, cross_gram_plain
+from vargp_tpu_torch.ops.cuda.rbf_gram import rbf_gram, rbf_gram_plain
 from vargp_tpu_torch.ops.cuda.sym_gram import sym_gram, sym_gram_plain
 from vargp_tpu_torch.ops.cuda.sym_gram_tri import sym_gram_tri
 
@@ -257,3 +261,84 @@ def test_init_rbf_matches_jax():
     got = trbf.init_rbf(_t(eps))
     np.testing.assert_allclose(got.log_mean.numpy(), np.asarray(want.log_mean), rtol=1e-6)
     np.testing.assert_array_equal(got.log_logvar.numpy(), np.asarray(want.log_logvar))
+
+
+def _prescaled(seed, G, M, N, D):
+    rng = np.random.default_rng(seed)
+    sx = (rng.standard_normal((G, M, D)) / np.sqrt(D)).astype(f32)
+    sy = (rng.standard_normal((G, N, D)) / np.sqrt(D)).astype(f32)
+    gamma2 = np.exp(rng.standard_normal(G) * 0.2).astype(f32)
+    return sx, sy, gamma2
+
+
+@pytest.mark.parametrize("G,M,N,D", [(3, 37, 70, 64), (2, 130, 9, 5), (1, 1, 1, 1)])
+def test_rbf_gram_plain_matches_pallas_interpret(G, M, N, D):
+    """K5's plain version against ``_gram_3d`` itself (interpret mode) on
+    ragged shapes: rows and columns padded to 128 there, masked here."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    from vargp_tpu.ops.pallas.rbf_gram import _gram_3d
+
+    sx, sy, gamma2 = _prescaled(M + N, G, M, N, D)
+    with pltpu.force_tpu_interpret_mode():
+        want = _gram_3d(*map(jnp.asarray, (sx, sy, gamma2)))
+    got = rbf_gram(*map(_t, (sx, sy, gamma2)))  # CPU tensors: the plain version
+    assert got.shape == (G, M, N)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(rbf_gram_plain(*map(_t, (sx, sy, gamma2))).numpy(), got.numpy())
+
+
+@pytest.mark.parametrize("same", [False, True])
+def test_rbf_gram_backward_matches_jax_vjp(same):
+    """The cotangents of sx, sy and gamma2 against ``jax.vjp`` of
+    ``rbf_gram_pallas`` (whose rule is ``_rbf_gram_bwd``); with sx passed
+    as both sides, as the deep kernel's K_zz does, the two sides' cotangents
+    add up on both."""
+    from vargp_tpu.ops.pallas.rbf_gram import rbf_gram_pallas
+
+    G, M, N, D = 3, 37, 70, 64
+    sx, sy, gamma2 = _prescaled(7, G, M, N, D)
+    if same:
+        sy = sx
+    g = np.random.default_rng(8).standard_normal((G, M, sy.shape[1])).astype(f32)
+    if same:
+        want_K, vjp = jax.vjp(lambda a, c: rbf_gram_pallas(a, a, c),
+                              jnp.asarray(sx), jnp.asarray(gamma2[:, None, None]))
+        want = (*vjp(jnp.asarray(g)),)
+        leaves = [_t(sx).requires_grad_(), _t(gamma2).requires_grad_()]
+        K = tdispatch.rbf_gram(leaves[0], leaves[0], leaves[1])
+        names = ("sx", "gamma2")
+    else:
+        want_K, vjp = jax.vjp(rbf_gram_pallas, jnp.asarray(sx), jnp.asarray(sy),
+                              jnp.asarray(gamma2[:, None, None]))
+        want = vjp(jnp.asarray(g))
+        leaves = [_t(a).requires_grad_() for a in (sx, sy, gamma2)]
+        K = tdispatch.rbf_gram(*leaves)
+        names = ("sx", "sy", "gamma2")
+    np.testing.assert_allclose(K.detach().numpy(), np.asarray(want_K), rtol=1e-5, atol=1e-6)
+    got = torch.autograd.grad(K, leaves, _t(g))
+    for name, a, b in zip(names, got, want):
+        _close_to_scale(a.numpy(), np.asarray(b).reshape(a.shape), name=name)
+
+
+@pytest.mark.parametrize("x_shape,y_rows", [((9, 5), None), ((2, 21, 7), 13), ((2, 3, 11, 4), None)])
+def test_gram_matches_jax(x_shape, y_rows):
+    """The generic Gram with the per-hyper-sample scaling, over 0 to 2
+    batch axes, y = x or another input."""
+    rng = np.random.default_rng(len(x_shape))
+    D, H = x_shape[-1], 3
+    x = (rng.standard_normal(x_shape) * 0.4).astype(f32)
+    y = None if y_rows is None else (rng.standard_normal((*x_shape[:-2], y_rows, D)) * 0.4).astype(f32)
+    theta = (rng.standard_normal((H, D + 1)) * 0.2).astype(f32)
+    want = jrbf.gram(jnp.asarray(theta), jnp.asarray(x), None if y is None else jnp.asarray(y))
+    got = trbf.gram(_t(theta), _t(x), None if y is None else _t(y))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+
+
+def test_rbf_gram_rejects_mismatched_batches():
+    sx, sy, gamma2 = _prescaled(0, 2, 4, 5, 3)
+    with pytest.raises(ValueError, match="rbf_gram"):
+        tdispatch.rbf_gram(_t(sx), _t(sy[:1]), _t(gamma2))
+    with pytest.raises(ValueError, match="several devices"):
+        rbf_gram(_t(sx), _t(sy), _t(gamma2).to("meta"))

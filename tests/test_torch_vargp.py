@@ -161,7 +161,7 @@ def test_eval_budget_cfg_matches_jax(model):
 
 
 @pytest.mark.parametrize("override", [
-    {"dkl": True}, {"solve_via_inverse": False}, {"tril_layout": "filled"},
+    {"solve_via_inverse": False}, {"tril_layout": "filled"},
 ])
 def test_unported_forms_raise(model, override):
     from dataclasses import replace
@@ -207,9 +207,3 @@ def test_entry_points_never_move_to_the_cpu_quietly(model):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             convert.params_from_numpy(_np(m["params"]), (), None)
-
-
-def test_params_from_numpy_rejects_the_deep_kernel(model):
-    p = _np(model["params"])._replace(phi=np.zeros(3, f32))
-    with pytest.raises(NotImplementedError):
-        convert.params_from_numpy(p, (), None, device="cpu")

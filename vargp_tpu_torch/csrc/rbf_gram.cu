@@ -1,0 +1,77 @@
+// K5: generic RBF Gram on pre-scaled inputs, one Gram per batch element:
+//
+//   out[g, i, j] = gamma2[g] * exp(-0.5 * max(|sx_gi|^2 + |sy_gj|^2 - 2 <sx_gi, sy_gj>, 0))
+//
+// Replaces vargp_tpu/ops/pallas/rbf_gram.py::_gram_3d (body
+// _make_gram_kernel, entered through rbf_gram_pallas).  The TPU kernel
+// zero-padded M and N to 128 and D to a lane multiple and ran one
+// 128x128 output block per grid step with whole feature rows in VMEM.
+// Here each block computes one 64x64 output tile of one batch element
+// (blockIdx.z = g) with the tile of rbf_tile.cuh in its PRESCALED mode:
+// feature chunks of 16 staged in shared memory, a 4x4 register block per
+// thread, the squared norms accumulated by the staging threads, gamma2 *
+// exp fused into the epilogue.  Ragged M and N are masked at load and
+// store; nothing is padded in device memory.
+//
+// Both operands run the same staging and norm code, so when sx and sy
+// hold the same values (the deep kernel's K_zz, sx == sy) every element
+// equals its mirror bit for bit and the Gram is exactly symmetric, as the
+// factorisation downstream expects.
+//
+// What bounds it on an H100: the f32 FMAs, 2 G M N D operations against
+// 4 (G M D + G N D + G M N) bytes; at the deep kernel's D = 64 the output
+// write is of the same order.  Full f32 on the CUDA cores, as the
+// TPU's "highest" product.
+//
+// sx (G, M, D), sy (G, N, D), gamma2 (G,) -> out (G, M, N).
+
+#include "rbf_tile.cuh"
+
+namespace {
+
+using vargp::kThreads;
+using vargp::kTileM;
+using vargp::kTileN;
+
+__global__ void __launch_bounds__(kThreads)
+    rbf_gram_kernel(const float* __restrict__ sx, const float* __restrict__ sy,
+                    const float* __restrict__ gamma2, float* __restrict__ out,
+                    int M, int N, int D) {
+  __shared__ vargp::TileSmem sm;
+
+  const int g = blockIdx.z;
+  const int row0 = blockIdx.y * kTileM;
+  const int col0 = blockIdx.x * kTileN;
+
+  float acc[4][4];
+  vargp::rbf_tile_accumulate<false, true>(sx + (size_t)g * M * D,
+                                          sy + (size_t)g * N * D, nullptr, M,
+                                          N, D, row0, col0, sm, acc);
+
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  const float g2 = gamma2[g];
+  float* O_ = out + (size_t)g * M * N;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = row0 + ty * 4 + i;
+    if (r >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = col0 + tx * 4 + j;
+      if (c >= N) continue;
+      O_[(size_t)r * N + c] = vargp::rbf_tile_value(sm, acc, g2, i, j);
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int vargp_rbf_gram(const float* sx, const float* sy,
+                              const float* gamma2, float* out, int G, int M,
+                              int N, int D, void* stream) {
+  const dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM, G);
+  rbf_gram_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      sx, sy, gamma2, out, M, N, D);
+  return static_cast<int>(cudaGetLastError());
+}

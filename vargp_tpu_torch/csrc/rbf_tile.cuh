@@ -1,5 +1,6 @@
 // Fused ARD-RBF Gram tile shared by the symmetric Grams (sym_gram.cu,
-// sym_gram_tri.cu) and the cross Gram (cross_gram.cu):
+// sym_gram_tri.cu), the cross Gram (cross_gram.cu) and the generic Gram on
+// pre-scaled inputs (rbf_gram.cu):
 //
 //   out[h, o, i, j] = gamma2[h] * exp(-0.5 * max(na_i + nb_j - 2 <a_i, b_j>, 0))
 //
@@ -12,6 +13,9 @@
 //                 s = exp(-log_ls) (H, D); na_i = |s a_i|^2, nb_j = |s b_j|^2.
 //   !SYM (K_zx):  rows a = z[o] raw, cols b = x scaled by w = exp(-2 log_ls);
 //                 na_i = <a_i, w a_i>, nb_j = <b_j, w b_j>.
+//   PRESCALED:    rows a and cols b taken as they are (the caller scaled
+//                 them); na_i = |a_i|^2, nb_j = |b_j|^2.  Both sides run the
+//                 same code, so with a == b the Gram is bitwise symmetric.
 //
 // In the SYM case every output element is computed by the same arithmetic
 // as its mirror (same k order, commutative products, norms computed by the
@@ -48,8 +52,9 @@ struct TileSmem {
 // [col0, col0 + kTileN) of Bm into acc (thread (ty, tx) = (tid >> 4,
 // tid & 15) owns rows ty*4 .. ty*4+3 and cols tx*4 .. tx*4+3 of the tile),
 // and the rows' and cols' squared norms into sm.na / sm.nb.  Ends with a
-// barrier, so sm.na / sm.nb are readable by every thread.
-template <bool SYM>
+// barrier, so sm.na / sm.nb are readable by every thread.  s is not read
+// when PRESCALED.
+template <bool SYM, bool PRESCALED = false>
 __device__ __forceinline__ void rbf_tile_accumulate(
     const float* __restrict__ A, const float* __restrict__ Bm,
     const float* __restrict__ s, int M, int N, int D, int row0, int col0,
@@ -75,11 +80,16 @@ __device__ __forceinline__ void rbf_tile_accumulate(
     for (int q = 0; q < 4; ++q) {
       const int k = k0 + lk + q;
       const bool kin = k < D;
-      const float sk = kin ? s[k] : 0.f;
+      const float sk = (!PRESCALED && kin) ? s[k] : 0.f;
       const float av = (kin && ar < M) ? A[(size_t)ar * D + k] : 0.f;
       const float bv = (kin && bc < N) ? Bm[(size_t)bc * D + k] : 0.f;
       float ae, be;
-      if (SYM) {
+      if (PRESCALED) {
+        ae = av;
+        be = bv;
+        na = fmaf(ae, ae, na);
+        nb = fmaf(be, be, nb);
+      } else if (SYM) {
         ae = av * sk;
         be = bv * sk;
         na = fmaf(ae, ae, na);

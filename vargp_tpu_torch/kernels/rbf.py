@@ -5,10 +5,13 @@ Counterpart of ``vargp_tpu/kernels/rbf.py``.  theta = (log lengthscales
 of the reparameterised hyper samples (and of ``init_rbf``) is an argument,
 so a caller can feed the same draws to this package and to the JAX one.
 
-The two Grams are ``torch.autograd.Function``s with the JAX package's hand
-backward rules (``_sym_gram_bwd``, ``_cross_gram_p_bwd``): plain f32
-products that reuse one large contraction for the inputs' and the
-lengthscales' cotangents, and never differentiate through the kernels.
+The two fused-scaling Grams are ``torch.autograd.Function``s with the JAX
+package's hand backward rules (``_sym_gram_bwd``, ``_cross_gram_p_bwd``):
+plain f32 products that reuse one large contraction for the inputs' and
+the lengthscales' cotangents, and never differentiate through the
+kernels.  The generic ``gram`` scales its inputs here and goes through
+``ops.dispatch.rbf_gram`` (K5, with ``_rbf_gram_bwd``); the deep kernel
+computes its Grams with it.
 """
 
 import math
@@ -21,6 +24,7 @@ from vargp_tpu_torch.ops.cuda.cross_gram import cross_gram as _cross_gram_kernel
 from vargp_tpu_torch.ops.cuda.sym_gram import sym_gram as _sym_gram_kernel
 from vargp_tpu_torch.ops.cuda.sym_gram_tri import sym_gram_tri as _sym_gram_tri_kernel
 from vargp_tpu_torch.ops.device import resolve_device
+from vargp_tpu_torch.ops.dispatch import rbf_gram
 
 # The JAX package's shape gate (rbf_gram.py:518): the triangle-skip Gram
 # from this many chain rows up, the whole-square one below.
@@ -143,6 +147,26 @@ class _CrossGram(torch.autograd.Function):
         )
         d_gamma2 = torch.sum(W, dim=(1, 2, 3)) / gamma2
         return t_zz + t_cross, None, d_invs2, d_gamma2
+
+
+def _split_theta(theta: torch.Tensor, n_batch_dims: int):
+    """theta (n_hypers, D+1) -> lengthscales sigma (n_hypers, 1.., D) and
+    gamma2 (n_hypers, 1.., 1), with ``n_batch_dims`` unit axes so that both
+    broadcast over that many batch axes."""
+    shape = (theta.shape[0], *([1] * n_batch_dims))
+    sigma = torch.exp(theta[:, :-1]).reshape(*shape, -1)
+    gamma2 = torch.exp(2.0 * theta[:, -1]).reshape(*shape, 1)
+    return sigma, gamma2
+
+
+def gram(theta: torch.Tensor, x: torch.Tensor, y: torch.Tensor | None = None) -> torch.Tensor:
+    """Batched RBF Gram: x (..., M, D), y (..., N, D) with the same batch
+    dims, or None for y = x.  Returns (n_hypers, ..., M, N), through K5 in
+    f32; every input, y included, gets a gradient."""
+    sigma, gamma2 = _split_theta(theta, x.dim() - 2)
+    sx = x[None] / sigma[..., None, :]
+    sy = sx if y is None else y[None] / sigma[..., None, :]
+    return rbf_gram(sx, sy, gamma2[..., 0].expand(sx.shape[:-2]))
 
 
 def sym_gram(theta: torch.Tensor, z: torch.Tensor) -> torch.Tensor:

@@ -1,13 +1,16 @@
 """VAR-GP: the ELBO pieces, the predictive probabilities and the
 construction of a task's parameters.
 
-Counterpart of ``vargp_tpu/models/vargp.py`` for the non-DKL model with
-the inverse-based solves and the whitened-factored AR posterior.
-``loss`` is differentiable: its gradient runs through the hand rules of
-the Grams and the factorisation and through autograd elsewhere.  Every
-random draw of the path is an explicit tensor in ``noise``:
+Counterpart of ``vargp_tpu/models/vargp.py`` with the inverse-based
+solves and the whitened-factored AR posterior, for the RBF-ARD kernel on
+the inputs and for the deep kernel (``cfg.dkl``: the RBF kernel on the
+features of an MLP, ``params.phi``, trained with the rest).  ``loss`` is
+differentiable: its gradient runs through the hand rules of the Grams and
+the factorisation and through autograd elsewhere.  Every random draw of
+the path is an explicit tensor in ``noise``:
 
-  ``hyper_eps``  (n_var_samples, D+1)        hyper-sample noise
+  ``hyper_eps``  (n_var_samples, P+1)        hyper-sample noise, P =
+                                             ``_theta_size(cfg)``
   ``prefix_eps`` (n_var_samples, H, O, c)    prefix draws of u_{<t}, c = S - M
                                              (``loss`` with a chain only)
   ``lik_eps``    (H, n_f, O, B)              function-sample noise
@@ -23,19 +26,26 @@ import torch
 
 from vargp_tpu_torch import gpmath
 from vargp_tpu_torch.kernels import (
+    MLPParams,
     RBFParams,
     RBFPrior,
     cross_gram,
+    deep_gram,
     default_prior,
+    gram,
     gram_diag,
+    init_mlp,
     init_rbf,
     kl_hypers,
+    mlp_apply,
     sample_hypers,
     sym_gram,
 )
+from vargp_tpu_torch.kernels.deep import DEFAULT_FEATURES
 from vargp_tpu_torch.likelihoods import softmax_loss, softmax_predict
 from vargp_tpu_torch.ops.device import check_on_device, resolve_device
 from vargp_tpu_torch.ops.dispatch import chol_and_inv
+from vargp_tpu_torch.train.optim import tree_leaves
 
 
 class TaskPosterior(NamedTuple):
@@ -53,13 +63,14 @@ class VARGPParams(NamedTuple):
     u_mean: torch.Tensor  # (O, M, 1)
     u_tril_vec: torch.Tensor  # (O, M(M+1)/2), row-major packing
     kernel: RBFParams
+    phi: MLPParams | None = None  # the deep kernel's feature map, under DKL only
 
 
 @dataclass(frozen=True)
 class VARGPConfig:
     """Static model configuration; the fields of the JAX package's config.
-    Only the non-DKL, ``solve_via_inverse``, row-major-packed model is
-    ported: other values raise ``NotImplementedError``."""
+    Only the ``solve_via_inverse``, row-major-packed model is ported: other
+    values raise ``NotImplementedError``."""
 
     M: int
     out_size: int
@@ -85,7 +96,7 @@ class ChainPosterior(NamedTuple):
     """The x-independent state of one forward pass: hyper samples, the
     chain Gram's factor and inverse, and the whitened-factored posterior."""
 
-    theta: torch.Tensor  # (H, D+1)
+    theta: torch.Tensor  # (H, P+1), P = _theta_size(cfg)
     L: torch.Tensor  # (H, O, S, S)
     L_inv: torch.Tensor  # (H, O, S, S)
     z_all: torch.Tensor  # (O, S, D)
@@ -95,12 +106,16 @@ class ChainPosterior(NamedTuple):
 
 
 def _check_supported(cfg: VARGPConfig) -> None:
-    if cfg.dkl:
-        raise NotImplementedError("the deep kernel (dkl=True) is not ported yet")
     if not cfg.solve_via_inverse:
         raise NotImplementedError("only solve_via_inverse=True is ported")
     if cfg.tril_layout != "rowmajor":
         raise NotImplementedError(f"tril_layout={cfg.tril_layout!r} is not ported")
+
+
+def _theta_size(cfg: VARGPConfig) -> int:
+    """Inputs the RBF kernel sees: the MLP's features under DKL, else the
+    data's."""
+    return DEFAULT_FEATURES if cfg.dkl else cfg.in_size
 
 
 def eval_budget_cfg(cfg: VARGPConfig, n_f: int | None = None,
@@ -170,7 +185,10 @@ def build_posterior(params: VARGPParams, prev: Sequence[TaskPosterior],
     """Sample theta and build the AR joint posterior over the whole chain."""
     theta = sample_hypers(params.kernel, hyper_eps, map_est=cfg.map_est_hypers)
     z_all, u_means, u_trils, u_tril_t = _concat_chain(params, prev, cfg)
-    Kzz = sym_gram(theta, z_all)  # (H, O, S, S)
+    if cfg.dkl:
+        Kzz = deep_gram(params.phi, theta, z_all)  # (H, O, S, S), K5
+    else:
+        Kzz = sym_gram(theta, z_all)  # (H, O, S, S), K1 or K2
     if chain_mask is not None:
         rm = _row_mask(chain_mask, cfg.M)
         Kzz = Kzz * (rm[:, None] * rm[None, :]) + torch.diag(1.0 - rm)
@@ -184,10 +202,18 @@ def build_posterior(params: VARGPParams, prev: Sequence[TaskPosterior],
     )
 
 
-def marginal_diag(cp: ChainPosterior, x: torch.Tensor, cfg: VARGPConfig, *,
-                  chain_mask: torch.Tensor | None = None):
-    """Diagonal predictive marginal (f_mean, f_var), each (H, O, B)."""
-    Kzx = cross_gram(cp.theta, cp.z_all, x)  # (H, O, S, B)
+def marginal_diag(cp: ChainPosterior, params: VARGPParams, x: torch.Tensor,
+                  cfg: VARGPConfig, *, chain_mask: torch.Tensor | None = None):
+    """Diagonal predictive marginal (f_mean, f_var), each (H, O, B).  Under
+    DKL, phi(x) is computed once and broadcast over the class heads (the
+    JAX package applies phi to x broadcast to (O, B, D): the same values,
+    and autograd sums the heads' cotangents alike)."""
+    if cfg.dkl:
+        fx = mlp_apply(params.phi, x)  # (B, P)
+        fx = fx.expand(cfg.out_size, *fx.shape)
+        Kzx = gram(cp.theta, mlp_apply(params.phi, cp.z_all), fx)  # (H, O, S, B), K5
+    else:
+        Kzx = cross_gram(cp.theta, cp.z_all, x)  # (H, O, S, B), K4
     if chain_mask is not None:
         Kzx = Kzx * _row_mask(chain_mask, cfg.M)[:, None]
     return gpmath.whitened_marginal_diag_factored(
@@ -198,7 +224,7 @@ def marginal_diag(cp: ChainPosterior, x: torch.Tensor, cfg: VARGPConfig, *,
 def _check_noise(noise: dict, cfg: VARGPConfig, c: int, B: int, with_kl: bool):
     H = 1 if cfg.map_est_hypers else cfg.n_var_samples
     want = {
-        "hyper_eps": (cfg.n_var_samples, cfg.in_size + 1),
+        "hyper_eps": (cfg.n_var_samples, _theta_size(cfg) + 1),
         "lik_eps": (H, cfg.n_f, cfg.out_size, B),
     }
     if with_kl and c:
@@ -222,7 +248,7 @@ def forward(params: VARGPParams, prev: Sequence[TaskPosterior],
     c = len(prev) * cfg.M
     _check_noise(noise, cfg, c, x.shape[0], with_kl)
     cp = build_posterior(params, prev, noise["hyper_eps"], cfg, chain_mask=chain_mask)
-    f_mean, f_var = marginal_diag(cp, x, cfg, chain_mask=chain_mask)
+    f_mean, f_var = marginal_diag(cp, params, x, cfg, chain_mask=chain_mask)
     if not with_kl:
         zero = f_mean.new_zeros(())
         return ForwardResult(f_mean, f_var, zero, zero)
@@ -254,7 +280,7 @@ def forward(params: VARGPParams, prev: Sequence[TaskPosterior],
 
 
 def _tensors(params, prev, *more):
-    out = [params.z, params.u_mean, params.u_tril_vec, *params.kernel]
+    out = tree_leaves(params)
     for p in prev:
         out.extend(p)
     out.extend(t for t in more if isinstance(t, torch.Tensor))
@@ -315,29 +341,44 @@ def _diag_mask_vec(m: int, device=None) -> torch.Tensor:
 
 def init_params(kernel_eps: torch.Tensor, u_eps: torch.Tensor, z_init: torch.Tensor,
                 cfg: VARGPConfig, *, kernel_prior_from: RBFParams | None = None,
+                phi_uniform: Sequence[torch.Tensor] | None = None,
+                phi_init: MLPParams | None = None,
                 log_lengthscale_init=None) -> tuple[VARGPParams, RBFPrior]:
     """Trainable parameters of a new task and its kernel prior.
 
-    ``kernel_eps`` (D+1,) and ``u_eps`` (O, M, 1) are the standard-normal
-    draws of the JAX package's ``init_params`` (its kernel and u keys).
-    z_init (O, M, D) are the inducing inputs; the prior chains from the
-    previous task's kernel posterior when given, else it is N(0, I); a
-    given ``log_lengthscale_init`` replaces every log-lengthscale mean.
-    u_tril starts as the packed identity (softplus(1) on the diagonal)."""
+    ``kernel_eps`` (P+1,) and ``u_eps`` (O, M, 1) are the standard-normal
+    draws of the JAX package's ``init_params`` (its kernel and u keys),
+    P = ``_theta_size(cfg)``.  z_init (O, M, D) are the inducing inputs;
+    the prior chains from the previous task's kernel posterior when given,
+    else it is N(0, I); a given ``log_lengthscale_init`` replaces every
+    log-lengthscale mean.  u_tril starts as the packed identity
+    (softplus(1) on the diagonal).  Under DKL the feature map starts as a
+    copy of ``phi_init`` when given, else from the U[0, 1) draws
+    ``phi_uniform`` (``kernels.deep.init_mlp``)."""
     _check_supported(cfg)
+    P = _theta_size(cfg)
     kernel = init_rbf(kernel_eps)
     if log_lengthscale_init is not None:
         ls = torch.as_tensor(log_lengthscale_init, dtype=kernel.log_mean.dtype,
                              device=kernel.log_mean.device)
-        ls = torch.broadcast_to(ls, (cfg.in_size,))
+        ls = torch.broadcast_to(ls, (P,))
         kernel = kernel._replace(log_mean=torch.cat([ls, kernel.log_mean[-1:]]))
     if kernel_prior_from is not None:
         prior = RBFPrior(kernel_prior_from.log_mean, kernel_prior_from.log_logvar)
     else:
-        prior = default_prior(cfg.in_size, device=z_init.device)
+        prior = default_prior(P, device=z_init.device)
+    phi = None
+    if cfg.dkl:
+        if phi_init is not None:
+            phi = MLPParams(*(tuple(t.detach().clone() for t in g) for g in phi_init))
+        elif phi_uniform is not None:
+            phi = init_mlp(phi_uniform, cfg.in_size)
+        else:
+            raise ValueError("dkl=True: pass phi_init or the phi_uniform draws")
     u_tril_vec = _diag_mask_vec(cfg.M, device=z_init.device).expand(cfg.out_size, -1)
     params = VARGPParams(
         z=z_init, u_mean=0.5 * u_eps, u_tril_vec=u_tril_vec.contiguous(), kernel=kernel,
+        phi=phi,
     )
     return params, prior
 

@@ -34,6 +34,7 @@ _SIGNATURES = {
     "vargp_sym_gram_tri": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "vargp_cross_gram": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "vargp_diag_chol": (_P, _P, _I, _P),
+    "vargp_rbf_gram": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

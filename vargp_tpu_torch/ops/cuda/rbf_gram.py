@@ -1,0 +1,49 @@
+"""K5: generic RBF Gram on pre-scaled inputs (``csrc/rbf_gram.cu``).
+
+Replaces ``vargp_tpu/ops/pallas/rbf_gram.py::_gram_3d``, entered through
+``rbf_gram_pallas``.  A CUDA tensor launches the kernel; a CPU tensor
+takes :func:`rbf_gram_plain`, the einsum body of ``_rbf_gram_impl``
+(``rbf_gram.py:108-112``).
+"""
+
+import torch
+
+from vargp_tpu_torch.ops.cuda.build import check_f32_contiguous, launch, on_cpu
+
+
+def rbf_gram_plain(sx: torch.Tensor, sy: torch.Tensor,
+                   gamma2: torch.Tensor) -> torch.Tensor:
+    """sx (G, M, D), sy (G, N, D), gamma2 (G,) -> (G, M, N)."""
+    xx = torch.sum(sx * sx, dim=-1)
+    yy = torch.sum(sy * sy, dim=-1)
+    xy = torch.einsum("gmd,gnd->gmn", sx, sy)
+    d2 = torch.clamp(xx[..., :, None] - 2.0 * xy + yy[..., None, :], min=0.0)
+    return gamma2[:, None, None] * torch.exp(-0.5 * d2)
+
+
+def rbf_gram(sx: torch.Tensor, sy: torch.Tensor, gamma2: torch.Tensor) -> torch.Tensor:
+    """K[g, i, j] = gamma2[g] exp(-0.5 |sx[g, i] - sy[g, j]|^2)."""
+    if on_cpu(sx, sy, gamma2):
+        return rbf_gram_plain(sx, sy, gamma2)
+    G, M, D = sx.shape
+    N = sy.shape[1]
+    if sy.shape != (G, N, D) or gamma2.shape != (G,):
+        raise ValueError(
+            f"rbf_gram: sx {tuple(sx.shape)}, sy {tuple(sy.shape)}, "
+            f"gamma2 {tuple(gamma2.shape)}"
+        )
+    if G > 65535:
+        raise ValueError(f"rbf_gram: G = {G} exceeds the grid's z limit")
+    check_f32_contiguous("rbf_gram", sx, sy, gamma2)
+    out = torch.empty((G, M, N), device=sx.device, dtype=torch.float32)
+    if out.numel() == 0:
+        return out
+    launch(
+        "vargp_rbf_gram", sx.device, sx.data_ptr(), sy.data_ptr(), gamma2.data_ptr(),
+        out.data_ptr(), G, M, N, D,
+    )
+    rbf_gram.launches += 1
+    return out
+
+
+rbf_gram.launches = 0

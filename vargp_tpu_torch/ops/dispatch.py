@@ -1,13 +1,17 @@
-"""Kernel dispatch and the Gram factorisation with its backward rule.
+"""Kernel dispatch: the generic RBF Gram and the Gram factorisation, each
+with its backward rule.
 
 Counterpart of ``vargp_tpu/ops/dispatch.py``.  Dispatch is by the
 tensors' device: the kernel wrappers in ``ops.cuda`` launch their kernels
 for CUDA tensors and run their plain versions for CPU tensors.  The
 factorisation takes the JAX package's defaults; it has no environment
-knob.
+knob.  The generic Gram is always f32 (K5): the JAX package's "high"
+(bf16x3) option only chose a cheaper product on the TPU.
 """
 
 import torch
+
+from vargp_tpu_torch.ops.cuda.rbf_gram import rbf_gram as _rbf_gram_kernel
 
 # Blocked-split rule of vargp_tpu/ops/dispatch.py:185-214.  The upper bound
 # is the diagonal-block kernel's: K3 takes blocks of at most 128 rows, as
@@ -149,3 +153,45 @@ def chol_and_inv(K: torch.Tensor):
     """(chol(K), chol(K)^{-1}) of a batch of SPD matrices, differentiable
     through the JAX package's hand rule."""
     return _CholAndInv.apply(K)
+
+
+class _RbfGram(torch.autograd.Function):
+    """Forward: K5 on (G, M, D) x (G, N, D).  Backward: ``_rbf_gram_bwd``
+    (vargp_tpu/ops/pallas/rbf_gram.py:152-171), products outside any
+    kernel as in the JAX package.  With W = g K:
+    dsx = W sy - rowsum(W) sx, dsy = W^T sx - colsum(W) sy and
+    dgamma2 = sum(W) / max(gamma2, 1e-30).  Both inputs get a cotangent:
+    under the deep kernel both sides are features of a trained map."""
+
+    @staticmethod
+    def forward(ctx, sx, sy, gamma2):
+        K = _rbf_gram_kernel(sx, sy, gamma2)
+        ctx.save_for_backward(sx, sy, gamma2, K)
+        return K
+
+    @staticmethod
+    def backward(ctx, g):
+        sx, sy, gamma2, K = ctx.saved_tensors
+        W = g * K  # (G, M, N)
+        dsx = torch.matmul(W, sy) - torch.sum(W, dim=-1)[..., None] * sx
+        dsy = torch.matmul(W.transpose(-1, -2), sx) - torch.sum(W, dim=-2)[..., None] * sy
+        d_gamma2 = torch.sum(W, dim=(-2, -1)) / torch.clamp(gamma2, min=1e-30)
+        return dsx, dsy, d_gamma2
+
+
+def rbf_gram(sx: torch.Tensor, sy: torch.Tensor, gamma2: torch.Tensor) -> torch.Tensor:
+    """gamma2 exp(-0.5 |sx_i - sy_j|^2) on pre-scaled inputs: sx (..., M, D)
+    and sy (..., N, D) with the same batch dims, gamma2 one scalar per
+    batch element (...,).  Returns (..., M, N), through K5, differentiable
+    in all three."""
+    batch, (M, D), N = sx.shape[:-2], sx.shape[-2:], sy.shape[-2]
+    if sy.shape[:-2] != batch or tuple(gamma2.shape) != tuple(batch):
+        raise ValueError(
+            f"rbf_gram: sx {tuple(sx.shape)}, sy {tuple(sy.shape)}, "
+            f"gamma2 {tuple(gamma2.shape)}"
+        )
+    K = _RbfGram.apply(
+        sx.reshape(-1, M, D).contiguous(), sy.reshape(-1, N, D).contiguous(),
+        gamma2.reshape(-1).contiguous(),
+    )
+    return K.reshape(*batch, M, N)

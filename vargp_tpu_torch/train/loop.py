@@ -53,7 +53,7 @@ def draw_noise(gen: torch.Generator, cfg: V.VARGPConfig, n_prev: int,
     def normal(*shape):
         return torch.randn(shape, generator=gen, device=gen.device)
 
-    noise = {"hyper_eps": normal(n_v, cfg.in_size + 1)}
+    noise = {"hyper_eps": normal(n_v, V._theta_size(cfg) + 1)}
     if n_prev:
         noise["prefix_eps"] = normal(n_v, H, O, n_prev * cfg.M)
     noise["lik_eps"] = normal(H, cfg.n_f, O, batch_size)

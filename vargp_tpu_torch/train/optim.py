@@ -2,10 +2,10 @@
 ``optax.adam(lr)`` (optax 0.2.6) step for step.
 
 torch has no Yogi, and ``torch.optim.Adam`` places eps differently from
-optax, so both are here by hand, as functions of a parameter tree (a
-NamedTuple of tensors, nested) and a state ``OptState(count, mu, nu)``
-with mu and nu of the parameters' structure, as optax's
-``ScaleByAdamState``.  One update of leaf p with gradient g, count
+optax, so both are here by hand, as functions of a parameter tree
+(NamedTuples and tuples of tensors, nested; None for an absent subtree)
+and a state ``OptState(count, mu, nu)`` with mu and nu of the
+parameters' structure, as optax's ``ScaleByAdamState``.  One update of leaf p with gradient g, count
 c = state.count + 1:
 
   Yogi  mu = (1 - b1) g + b1 mu
@@ -29,11 +29,14 @@ class OptState(NamedTuple):
     nu: Any  # second moments
 
 
-def tree_leaves(tree) -> list[torch.Tensor]:
-    """The tensors of a (nested) NamedTuple, in field order."""
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    return [leaf for sub in tree for leaf in tree_leaves(sub)]
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of NamedTuples, tuples and lists, in field order
+    (the JAX package's flattening order); None is an empty subtree."""
+    if tree is None:
+        return []
+    if isinstance(tree, (tuple, list)):
+        return [leaf for sub in tree for leaf in tree_leaves(sub)]
+    return [tree]
 
 
 def tree_unflatten(like, leaves):
@@ -41,9 +44,12 @@ def tree_unflatten(like, leaves):
     it = iter(leaves)
 
     def build(t):
-        if isinstance(t, torch.Tensor):
-            return next(it)
-        return type(t)(*(build(s) for s in t))
+        if t is None:
+            return None
+        if isinstance(t, tuple):
+            subs = [build(s) for s in t]
+            return type(t)(*subs) if hasattr(t, "_fields") else tuple(subs)
+        return next(it)
 
     return build(like)
 

@@ -6,7 +6,8 @@
 Yogi/Adam state (``count``, ``mu``, ``nu``) the same way.  Nothing of the
 JAX package is imported.  ``params_to_numpy`` and ``opt_state_to_numpy``
 go the other way, to numpy leaves in the JAX package's tree order
-(z, u_mean, u_tril_vec, kernel.log_mean, kernel.log_logvar).
+(z, u_mean, u_tril_vec, kernel.log_mean, kernel.log_logvar and, under the
+deep kernel, phi.weights[0..2], phi.biases[0..2]).
 ``noise_for_loss`` / ``noise_for_predict`` build the ``noise`` dict of
 ``models.vargp`` from the draws the JAX path makes (hyper samples, prefix
 draws, function samples).
@@ -17,7 +18,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from vargp_tpu_torch.kernels import RBFParams, RBFPrior
+from vargp_tpu_torch.kernels import MLPParams, RBFParams, RBFPrior
 from vargp_tpu_torch.models.vargp import TaskPosterior, VARGPParams
 from vargp_tpu_torch.ops.device import resolve_device
 from vargp_tpu_torch.train.optim import OptState, tree_leaves, tree_unflatten
@@ -29,16 +30,18 @@ def to_tensor(a, device=None) -> torch.Tensor:
 
 
 def _vargp_params(tree, t) -> VARGPParams:
+    phi = getattr(tree, "phi", None)
+    if phi is not None:
+        phi = MLPParams(tuple(map(t, phi.weights)), tuple(map(t, phi.biases)))
     return VARGPParams(
         z=t(tree.z), u_mean=t(tree.u_mean), u_tril_vec=t(tree.u_tril_vec),
-        kernel=RBFParams(t(tree.kernel.log_mean), t(tree.kernel.log_logvar)),
+        kernel=RBFParams(t(tree.kernel.log_mean), t(tree.kernel.log_logvar)), phi=phi,
     )
 
 
 def params_from_numpy(params, prev: Sequence = (), prior=None, *, device=None):
-    """(VARGPParams, tuple of TaskPosterior, RBFPrior or None) on ``device``."""
-    if getattr(params, "phi", None) is not None:
-        raise NotImplementedError("the deep kernel (phi) is not ported yet")
+    """(VARGPParams, tuple of TaskPosterior, RBFPrior or None) on ``device``;
+    the deep kernel's phi is carried when the tree has one."""
     dev = resolve_device(device)
 
     def t(a):
@@ -54,8 +57,6 @@ def opt_state_from_numpy(state, *, device=None) -> OptState:
     """An optax ``ScaleByAdamState`` (count, and mu / nu of VARGPParams'
     structure) as the port's ``OptState`` on ``device``."""
     dev = resolve_device(device)
-    if getattr(state.mu, "phi", None) is not None:
-        raise NotImplementedError("the deep kernel (phi) is not ported yet")
     count = torch.tensor(np.asarray(state.count), dtype=torch.int32, device=dev)
     return OptState(
         count, _vargp_params(state.mu, lambda a: to_tensor(a, dev)),
