@@ -11,10 +11,13 @@ result) on a failure:
 2. the build: every kernel of the paths compiled from ``vargp_tpu_torch/csrc``
    with one ``nvcc`` call;
 3. each kernel (K1 sym-Gram, K2 triangle-skip sym-Gram, K3 diagonal-block
-   Cholesky, K4 cross-Gram, K5 generic Gram on pre-scaled inputs) held
-   against its plain PyTorch version on the card, at the shapes of the
-   paths and at a ragged shape; K1, K2 and K5's K_zz (sx == sy) must be
-   bitwise symmetric, and K3 must give NaN on a non-positive pivot;
+   Cholesky, K4 cross-Gram, K5 generic Gram on pre-scaled inputs, K6 fused
+   Cholesky and triangular inverse, K7 batched Cholesky, K8 chunked
+   diagonal-block Cholesky) held against its plain PyTorch version on the
+   card, at the shapes of the paths and at a ragged shape; K1, K2 and K5's
+   K_zz (sx == sy) must be bitwise symmetric, K3, K6, K7 and K8 must give
+   NaN on a non-positive pivot where their plain versions do, and K6's
+   L^-1 L must be the identity;
 4. the forward path: ``loss`` and ``predict`` of the flagship VAR-GP model
    (A, Split-MNIST task 4: a 5-task chain, M=60, 10 classes, D=784, B=512,
    3 hyper samples, 10 function samples; random weights from a numpy seed)
@@ -27,7 +30,12 @@ result) on a failure:
    10-task chain, M=100, S=1000, lr 3.7e-3, beta 1.64) and at C (A's
    settings under DKL), with the launch counters read around each step;
    every parameter's ELBO gradient, phi's included, on the card against
-   the CPU's on the same inputs and noise;
+   the CPU's on the same inputs and noise; then the factorisation's other
+   routes, each step with its launches counted and card against CPU:
+   ``solve_via_inverse=False`` (K7 once per step, no K3; also ``loss`` +
+   ``predict``) at A, B and C, ``VARGP_TPU_CHOLINV=pallas`` (K6 once per
+   step, no K3; also against the default route on the card) at A, B and
+   C, and ``VARGP_TPU_AR_FORM=materialized`` at A and B;
 6. training: a ``train_block`` of 20 Yogi steps at A and at C (finite loss
    at every step; the first 3 steps' ELBO pieces against the same 3 steps
    on the CPU, with the block's own permutations and noise) and of 5 steps
@@ -40,19 +48,24 @@ result) on a failure:
    batch replayed on the CPU from the same draws;
 8. timings: each kernel, its plain version and one PyTorch yardstick call
    the port never makes, in device time per call (``torch.profiler``), and
-   the kernel also with CUDA events around back-to-back calls; K1 at B's
-   shape beside K2; ``loss`` and ``predict`` end to end; the forward,
-   forward + backward and whole step of training at A, B and C (CUDA
-   events).
+   the kernel also with CUDA events around back-to-back calls (K6 and K7
+   at A's and B's shapes, K6 beside the default blocked factorisation);
+   K1 at B's shape beside K2; ``loss`` and ``predict`` end to end; the
+   forward, forward + backward and whole step of training at A, B and C,
+   and the step under the solve and fused routes (CUDA events).
 
 The line before the last two is one JSON object ``{"kernels": [...]}``; then
 the card's ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Nothing under ``results/`` is read.
 """
 
+import contextlib
+import dataclasses
+import functools
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -143,14 +156,16 @@ def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        raise AssertionError("the profiler traced no device time")
-    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
+    for attempt in range(3):  # a trace that came back without device events is taken again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
+        print(f"  (the profiler traced no device time, trace {attempt + 1} of 3)")
+    raise AssertionError("the profiler traced no device time")
 
 
 def bound(flops: float, nbytes: float):
@@ -191,9 +206,10 @@ def gram_inputs(rng, O, M, D, H, B, device):
     return z, x, invs, invs2, gamma2
 
 
-def spd_blocks(rng, G, device):
-    A = rng.standard_normal((G, 128, 128)).astype(np.float32)
-    K = A @ A.transpose(0, 2, 1) / 128 + 0.5 * np.eye(128, dtype=np.float32)
+def spd_blocks(rng, G, device, S=128):
+    """(G, S, S) SPD matrices with eigenvalues >= 0.5, entries O(1)."""
+    A = rng.standard_normal((G, S, S)).astype(np.float32)
+    K = A @ A.transpose(0, 2, 1) / np.float32(S) + np.float32(0.5) * np.eye(S, dtype=np.float32)
     return torch.tensor(K, device=device)
 
 
@@ -406,14 +422,135 @@ def check_k5(dev):
     return err, flag
 
 
-KERNELS = ("sym_gram", "sym_gram_tri", "diag_chol", "cross_gram", "rbf_gram")  # module == wrapper name
+def check_nan_pivot(label, fn, plain, S, bad):
+    """A non-positive pivot must give NaN in the same places as the plain
+    version, and an identity matrix's factor must come back exact."""
+    A = torch.eye(S, device="cuda").repeat(2, 1, 1)
+    A[1, bad, bad] = -1.0
+    outs, refs = fn(A), plain(A)
+    torch.cuda.synchronize()
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    refs = refs if isinstance(refs, tuple) else (refs,)
+    for o, r in zip(outs, refs):
+        if not (torch.isnan(o[1, bad, bad]) and torch.equal(torch.isnan(o), torch.isnan(r))):
+            raise AssertionError(f"{label} does not give NaN where the plain version does")
+        if not torch.equal(o[0], torch.eye(S, device="cuda")):
+            raise AssertionError(f"{label} changed the factor of an identity matrix")
+        fin = ~torch.isnan(o)
+        check(f"{label} non-positive pivot at {bad} (finite part)", max_abs_err(o[fin], r[fin]),
+              TOL_CHOL)
+    print(f"  {label} non-positive pivot: NaN where the plain version has NaN")
+
+
+def check_chol_kernels(dev):
+    """K8, K7 and K6 against their plain versions on the card: K8 at
+    (30, 128, 128) and (200, 128, 128), K7 and K6 at A's and B's shapes,
+    at (6, 128, 128) and at a ragged S = 200; K6's L^-1 L - I; NaN from a
+    non-positive pivot.  Only the lower triangle is read, so the inputs
+    carry junk above the diagonal.  Returns the largest errors and the
+    inputs for timing."""
+    from vargp_tpu_torch.ops.cuda.chol import cholesky, cholesky_plain
+    from vargp_tpu_torch.ops.cuda.chol_inv import chol_inv, chol_inv_plain
+    from vargp_tpu_torch.ops.cuda.diag_chol import diag_chol_chunked, diag_chol_plain
+
+    rng = np.random.default_rng(SEED + 5)
+    junk = lambda K: K + torch.triu(torch.full_like(K, 7.0), 1)
+    errs = {"diag_chol_chunked": 0.0, "cholesky": 0.0, "chol_inv": 0.0}
+    flag = {}
+    for G in (30, 200):
+        K = spd_blocks(rng, G, dev)
+        before = diag_chol_chunked.launches
+        L = diag_chol_chunked(junk(K))
+        torch.cuda.synchronize()
+        if diag_chol_chunked.launches != before + 1:
+            raise AssertionError("K8's launch counter did not count its launch")
+        ref = diag_chol_plain(K)
+        e = max_abs_err(L, ref)
+        check(f"K8 diag_chol_chunked {tuple(K.shape)}", e, TOL_CHOL, float(ref.abs().max()))
+        errs["diag_chol_chunked"] = max(errs["diag_chol_chunked"], e)
+        flag.setdefault("K8", K)
+    A, B = FLAGSHIP, PMNIST_LAST
+    shapes = {"A": (A["H"] * A["O"], A["n_tasks"] * A["M"]), "B": (B["H"] * B["O"], B["n_tasks"] * B["M"]),
+              "one panel": (6, 128), "ragged": (30, 200)}
+    for label, (G, S) in shapes.items():
+        K = spd_blocks(rng, G, dev, S)
+        b7, b6 = cholesky.launches, chol_inv.launches
+        L = cholesky(junk(K))
+        L6, X = chol_inv(junk(K))
+        torch.cuda.synchronize()
+        if (cholesky.launches, chol_inv.launches) != (b7 + 1, b6 + 1):
+            raise AssertionError("K7's or K6's launch counter did not count its launch")
+        ref = cholesky_plain(K)
+        e = max_abs_err(L, ref)
+        check(f"K7 cholesky {label} {tuple(K.shape)}", e, TOL_CHOL, float(ref.abs().max()))
+        errs["cholesky"] = max(errs["cholesky"], e)
+        refL, refX = chol_inv_plain(K)
+        e6 = max(max_abs_err(L6, refL), max_abs_err(X, refX))
+        check(f"K6 chol_inv {label} {tuple(K.shape)} (L and L^-1)", e6, TOL_CHOL,
+              float(refX.abs().max()))
+        errs["chol_inv"] = max(errs["chol_inv"], e6)
+        check(f"K6 chol_inv {label}: L^-1 L - I", max_abs_err(X @ L6, torch.eye(S, device=dev)),
+              TOL_CHOL)
+        if label in ("A", "B"):
+            flag[label] = K
+    check_nan_pivot("K8 diag_chol_chunked", diag_chol_chunked, diag_chol_plain, 128, 5)
+    check_nan_pivot("K7 cholesky", cholesky, cholesky_plain, 300, 150)
+    check_nan_pivot("K6 chol_inv", chol_inv, chol_inv_plain, 300, 150)
+    return errs, flag
+
+
+# wrapper name -> its module under vargp_tpu_torch.ops.cuda
+KERNELS = {"sym_gram": "sym_gram", "sym_gram_tri": "sym_gram_tri", "diag_chol": "diag_chol",
+           "cross_gram": "cross_gram", "rbf_gram": "rbf_gram", "chol_inv": "chol_inv",
+           "cholesky": "chol", "diag_chol_chunked": "diag_chol"}
 
 
 def wrappers() -> dict:
     import importlib
 
-    return {n: getattr(importlib.import_module(f"vargp_tpu_torch.ops.cuda.{n}"), n)
-            for n in KERNELS}
+    return {n: getattr(importlib.import_module(f"vargp_tpu_torch.ops.cuda.{m}"), n)
+            for n, m in KERNELS.items()}
+
+
+# The routes through the chain's factorisation: the default (K3 plus
+# products), solve_via_inverse=False (K7 alone, then triangular solves),
+# VARGP_TPU_CHOLINV=pallas (K6 in place of the blocked forward) and
+# VARGP_TPU_AR_FORM=materialized (the default factorisation, the
+# materialised posterior).  Each is (config override, environment).
+ROUTES = {
+    "default": ({}, {}),
+    "solve": ({"solve_via_inverse": False}, {}),
+    "fused": ({}, {"VARGP_TPU_CHOLINV": "pallas"}),
+    "materialized": ({}, {"VARGP_TPU_AR_FORM": "materialized"}),
+}
+
+
+@contextlib.contextmanager
+def route_env(route: str):
+    """The route's environment knobs set for the block, restored after."""
+    env = ROUTES[route][1]
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def expected_launches(name: str, route: str = "default") -> dict:
+    """Every wrapper's launches in one train step of configuration ``name``
+    under ``route``: the factorisation's kernels change, the Grams' stay."""
+    want = {k: 0 for k in KERNELS}
+    want.update(TRAIN[name]["launches"])
+    if route == "solve":
+        want.update(diag_chol=0, cholesky=1)
+    elif route == "fused":
+        want.update(diag_chol=0, chol_inv=1)
+    return want
 
 
 def reset_counts():
@@ -425,34 +562,39 @@ def read_counts():
     return {n: w.launches for n, w in wrappers().items()}
 
 
-def run_slice(device, dkl=False):
-    """loss and predict of the flagship model (C's under ``dkl``) on
-    ``device``."""
+def run_slice(device, name="A", route="default"):
+    """loss and predict of configuration ``name`` of TRAIN (the flagship
+    model at A, its deep kernel at C) on ``device`` under ``route``."""
     from vargp_tpu_torch.models import vargp as V
 
-    cfg, params, prev, prior, x, y, noise, pnoise = flagship_model(device, dkl=dkl)
+    spec = TRAIN[name]
+    cfg, params, prev, prior, x, y, noise, pnoise = flagship_model(
+        device, shape=spec["shape"], dkl=spec["dkl"])
+    cfg = dataclasses.replace(cfg, **ROUTES[route][0])
     out = V.loss(params, prev, prior, x, y, noise, cfg, device=device)
     probs = V.predict(params, prev, x, pnoise, cfg, device=device)
     return [float(v) for v in out], probs
 
 
-def check_forward(name, dev):
-    """loss + predict at A or C on the card, with the launches counted (each
-    call builds one posterior: twice the step's forward launches), against
-    the same on the CPU.  Returns the launches."""
+def check_forward(name, dev, route="default"):
+    """loss + predict of configuration ``name`` under ``route`` on the card,
+    with the launches counted (each call builds one posterior: twice the
+    step's forward launches), against the same on the CPU.  Returns the
+    launches."""
     dkl = TRAIN[name]["dkl"]
-    print(f"forward path (loss + predict, {name}{', deep kernel' if dkl else ''}, flagship width):")
-    reset_counts()
-    pieces, probs = run_slice(dev, dkl=dkl)
-    torch.cuda.synchronize()
-    launches = read_counts()
-    print(f"  launches: {launches}")
-    want = {k: 2 * v for k, v in TRAIN[name]["launches"].items()}
-    if launches != want:
-        raise AssertionError(f"{name}: launches {launches} on the forward path, expected {want}")
-    check_outputs("card", pieces, probs)
-    cpu_pieces, cpu_probs = run_slice(torch.device("cpu"), dkl=dkl)
-    check_outputs("cpu", cpu_pieces, cpu_probs)
+    print(f"forward path (loss + predict, {name}{', deep kernel' if dkl else ''}, route {route}):")
+    with route_env(route):
+        reset_counts()
+        pieces, probs = run_slice(dev, name, route)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        print(f"  launches: {launches}")
+        want = {k: 2 * v for k, v in expected_launches(name, route).items()}
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches} on the forward path, expected {want}")
+        check_outputs("card", pieces, probs, TRAIN[name]["shape"])
+        cpu_pieces, cpu_probs = run_slice(torch.device("cpu"), name, route)
+    check_outputs("cpu", cpu_pieces, cpu_probs, TRAIN[name]["shape"])
     for n, g, c in zip(("kl_hypers", "kl_u", "nll"), pieces, cpu_pieces):
         rel = abs(g - c) / max(abs(c), 1e-30)
         print(f"  {name} {n}: card {g!r} cpu {c!r} rel err {rel:.3e} (tol {TOL_E2E_REL:.0e})")
@@ -546,8 +688,8 @@ def check_analysis(dev):
     return dict(acc=acc, ent=ent, wall_s=wall, launches=launches, predicts=n_batches)
 
 
-def check_outputs(where, pieces, probs):
-    B, O = FLAGSHIP["B"], FLAGSHIP["O"]
+def check_outputs(where, pieces, probs, shape=FLAGSHIP):
+    B, O = shape["B"], shape["O"]
     if not all(math.isfinite(v) for v in pieces):
         raise AssertionError(f"{where}: non-finite loss pieces {pieces}")
     if tuple(probs.shape) != (B, O) or not bool(torch.isfinite(probs).all()):
@@ -557,16 +699,18 @@ def check_outputs(where, pieces, probs):
         raise AssertionError(f"{where}: predictive rows do not sum to 1")
 
 
-def train_inputs(name, device):
-    """Configuration ``name`` of TRAIN on ``device``: the model, its step's
-    noise (drawn from the numpy seed, the same on every device), the
-    padded chain's mask, the train block's dataset and the optimizer."""
+def train_inputs(name, device, route="default"):
+    """Configuration ``name`` of TRAIN on ``device``: the model (its config
+    set for ``route``), its step's noise (drawn from the numpy seed, the
+    same on every device), the padded chain's mask, the train block's
+    dataset and the optimizer."""
     from vargp_tpu_torch.models import vargp as V
     from vargp_tpu_torch.train import loop as TL
 
     spec = TRAIN[name]
     cfg, params, prev, prior, x, y, noise, _ = flagship_model(device, shape=spec["shape"],
                                                               dkl=spec["dkl"])
+    cfg = dataclasses.replace(cfg, **ROUTES[route][0])
     mask = None
     if spec["padded"]:  # every slot of the padded chain holds a real task
         prev, mask = V.pad_chain(prev, cfg, len(prev) + 1, device=device)
@@ -602,43 +746,55 @@ def step(t):
                         n_train=t["n_train"], chain_mask=t["mask"], device=t["device"])
 
 
-def check_train_step(name, dev):
-    """One ELBO step on the card with its launches counted; the ELBO pieces
-    and every gradient against the CPU's.  Returns the step's launches."""
-    t, c = train_inputs(name, dev), train_inputs(name, torch.device("cpu"))
-    reset_counts()
-    _, _, loss, _ = step(t)
-    torch.cuda.synchronize()
-    launches = read_counts()
-    print(f"  {name}: one elbo_step, launches {launches}, loss {float(loss)!r}")
-    if launches != TRAIN[name]["launches"]:
-        raise AssertionError(f"{name}: launches {launches}, expected {TRAIN[name]['launches']}")
-    if not math.isfinite(float(loss)):
-        raise AssertionError(f"{name}: non-finite loss")
-    pieces, grads = elbo_grads(t)
-    cpu_pieces, cpu_grads = elbo_grads(c)
-    for n, g, r in zip(("kl_hypers", "kl_u", "nll"), pieces, cpu_pieces):
+def compare_grads(label, names, pieces, grads, ref_pieces, ref_grads):
+    """The ELBO pieces within TOL_E2E_REL relative and every gradient leaf
+    within TOL_GRAD_REL of its largest magnitude, against the reference;
+    phi's last bias (exactly 0) against phi's largest bias gradient."""
+    for n, g, r in zip(("kl_hypers", "kl_u", "nll"), pieces, ref_pieces):
         g, r = float(g), float(r)
         rel = abs(g - r) / max(abs(r), 1e-30)
-        print(f"  {name} {n}: card {g!r} cpu {r!r} rel err {rel:.3e} (tol {TOL_E2E_REL:.0e})")
+        print(f"  {label} {n}: {g!r} against {r!r}, rel err {rel:.3e} (tol {TOL_E2E_REL:.0e})")
         if not rel <= TOL_E2E_REL:
-            raise AssertionError(f"{name} {n}: card and CPU differ by {rel} (relative)")
-    names = leaf_names(t["params"])
-    bias_scale = max((float(r.abs().max()) for n, r in zip(names, cpu_grads)
+            raise AssertionError(f"{label} {n}: differs by {rel} (relative)")
+    bias_scale = max((float(r.abs().max()) for n, r in zip(names, ref_grads)
                       if n.startswith(".phi.biases") and n != SHIFT_LEAF), default=0.0)
-    for leaf, g, r in zip(names, grads, cpu_grads):
-        if leaf == SHIFT_LEAF:  # exactly 0: both devices against 0
+    for leaf, g, r in zip(names, grads, ref_grads):
+        g, r = g.cpu(), r.cpu()
+        if leaf == SHIFT_LEAF:  # exactly 0: both against 0
             rel = max(float(g.abs().max()), float(r.abs().max())) / max(bias_scale, 1e-30)
-            print(f"  {name} d ELBO / d {leaf}: largest magnitude on either device / phi's "
+            print(f"  {label} d ELBO / d {leaf}: largest magnitude on either side / phi's "
                   f"largest bias gradient {rel:.3e} (the exact value is 0; tol {TOL_GRAD_REL:.0e})")
         else:
             scale = float(r.abs().max())
-            rel = max_abs_err(g.cpu(), r) / max(scale, 1e-30)
-            print(f"  {name} d ELBO / d {leaf}: max abs err / largest magnitude {rel:.3e} "
+            rel = max_abs_err(g, r) / max(scale, 1e-30)
+            print(f"  {label} d ELBO / d {leaf}: max abs err / largest magnitude {rel:.3e} "
                   f"(largest {scale:.3e}, tol {TOL_GRAD_REL:.0e})")
         if not (rel <= TOL_GRAD_REL and bool(torch.isfinite(g).all())):
-            raise AssertionError(f"{name}: gradient of {leaf} differs from the CPU's by {rel}")
-    return launches
+            raise AssertionError(f"{label}: gradient of {leaf} differs by {rel}")
+
+
+def check_train_step(name, dev, route="default"):
+    """One ELBO step on the card under ``route`` with its launches counted;
+    the ELBO pieces and every gradient against the CPU's under the same
+    route.  Returns the step's launches and the card's pieces and
+    gradients."""
+    with route_env(route):
+        t, c = train_inputs(name, dev, route), train_inputs(name, torch.device("cpu"), route)
+        reset_counts()
+        _, _, loss, _ = step(t)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        print(f"  {name}, route {route}: one elbo_step, launches {launches}, loss {float(loss)!r}")
+        want = expected_launches(name, route)
+        if launches != want:
+            raise AssertionError(f"{name} ({route}): launches {launches}, expected {want}")
+        if not math.isfinite(float(loss)):
+            raise AssertionError(f"{name} ({route}): non-finite loss")
+        pieces, grads = elbo_grads(t)
+        cpu_pieces, cpu_grads = elbo_grads(c)
+    compare_grads(f"{name} ({route}) card vs CPU", leaf_names(t["params"]), pieces, grads,
+                  cpu_pieces, cpu_grads)
+    return launches, (pieces, grads, leaf_names(t["params"]))
 
 
 def leaf_names(tree):
@@ -698,7 +854,8 @@ def check_training(dev):
 
 
 def time_training(dev):
-    """ms per forward, forward + backward and whole step, at A, B and C."""
+    """ms per forward, forward + backward and whole step, at A, B and C;
+    and the whole step under the solve and fused routes."""
     from vargp_tpu_torch.models import vargp as V
 
     out = {}
@@ -716,6 +873,10 @@ def time_training(dev):
             "forward_backward_ms": time_ms(lambda: elbo_grads(t), reps=reps),
             "step_ms": time_ms(lambda: step(t), reps=reps),
         }
+        for route in ("solve", "fused"):
+            with route_env(route):
+                tr = train_inputs(name, dev, route)
+                out[name][f"step_ms_{route}"] = time_ms(lambda: step(tr), reps=reps)
         print(f"  train {name}: " + "  ".join(f"{k} {v:.4f}" for k, v in out[name].items()))
     return out
 
@@ -746,11 +907,24 @@ def main() -> int:
     errs, flag = check_kernels(dev)
     errs["sym_gram_tri"], flag_b = check_k2(dev)
     errs["rbf_gram"], flag_c = check_k5(dev)
+    errs_chol, flag_chol = check_chol_kernels(dev)
+    errs.update(errs_chol)
 
     forward_launches = {name: check_forward(name, dev) for name in ("A", "C")}
+    solve_forward_launches = {name: check_forward(name, dev, "solve") for name in ("A", "B")}
 
     print("training path (one elbo_step each at A, B and C; gradients, card vs CPU):")
-    step_launches = {name: check_train_step(name, dev) for name in TRAIN}
+    step_out = {name: check_train_step(name, dev) for name in TRAIN}
+    step_launches = {name: v[0] for name, v in step_out.items()}
+    print("the factorisation's other routes (one elbo_step each; gradients, card vs CPU):")
+    route_launches = {}
+    for route, names in (("solve", "ABC"), ("fused", "ABC"), ("materialized", "AB")):
+        route_launches[route] = {}
+        for name in names:
+            route_launches[route][name], card = check_train_step(name, dev, route)
+            if route == "fused":  # the same function as the default route, on the card
+                compare_grads(f"{name} fused vs default route, card", card[2], card[0], card[1],
+                              *step_out[name][1][:2])
     print("training (train blocks on the card):")
     block_launches = check_training(dev)
 
@@ -823,19 +997,70 @@ def main() -> int:
         flops=1.0 * Gc * Sc * (Sc + 1) * Fc + 2.0 * Gc * Sc * Bc * Fc,
         nbytes=4.0 * (Gc * Sc * Fc + Gc + Gc * Sc * Sc) + 4.0 * (Gc * Sc * Fc + Gc * Bc * Fc + Gc + Gc * Sc * Bc),
     ))
+    # K8, K7 and K6: the lower triangle read once, each factor written
+    # whole; K7 S^3/3 FMAs' worth of operations, K6 twice that (the
+    # factor and the inverse)
+    from vargp_tpu_torch.ops import dispatch
+    from vargp_tpu_torch.ops.cuda.chol import cholesky, cholesky_plain
+    from vargp_tpu_torch.ops.cuda.chol_inv import chol_inv, chol_inv_plain
+    from vargp_tpu_torch.ops.cuda.diag_chol import diag_chol_chunked
+
+    def chol_work(K, n_out, n_factor):
+        G, S = K.shape[0], K.shape[-1]
+        return dict(flops=n_factor * G * S ** 3 / 3.0,
+                    nbytes=4.0 * G * (S * (S + 1) / 2 + n_out * S * S))
+
+    def cholinv_library(K):
+        L = torch.linalg.cholesky(K)
+        return torch.linalg.solve_triangular(L, torch.eye(K.shape[-1], device=K.device), upper=False)
+
+    k8in = flag_chol["K8"]
+    entries.append(dict(
+        name="diag_chol_chunked", route="cuda", source="vargp_tpu_torch/csrc/diag_chol_chunked.cu",
+        replaces="vargp_tpu/ops/pallas/chol_panel.py:311", path=None,
+        fn=lambda: diag_chol_chunked(k8in), plain=lambda: diag_chol_plain(k8in),
+        library=lambda: torch.linalg.cholesky(k8in), **chol_work(k8in, 1, 1),
+    ))
+    for n, path, src, rpl, fn, plain, lib, n_out, n_f in (
+        ("cholesky", "solve", "chol.cu", "chol.py:82", cholesky, cholesky_plain,
+         torch.linalg.cholesky, 1, 1),
+        ("chol_inv", "fused", "chol_inv.cu", "chol_inv.py:117", chol_inv, chol_inv_plain,
+         cholinv_library, 2, 2),
+    ):
+        for cfg_name in ("A", "B"):
+            K = flag_chol[cfg_name]
+            entries.append(dict(
+                name=n, shape=cfg_name, route="cuda", source=f"vargp_tpu_torch/csrc/{src}",
+                replaces=f"vargp_tpu/ops/pallas/{rpl}", path=path,
+                fn=functools.partial(fn, K), plain=functools.partial(plain, K),
+                library=functools.partial(lib, K), **chol_work(K, n_out, n_f),
+            ))
     for label, (fn, plain, lib) in k5.items():
         print(f"  rbf_gram (K5) {label} alone, device time: kernel {device_ms(fn):.4f}  plain "
               f"{device_ms(plain, reps=5, warmup=1):.4f}  yardstick {device_ms(lib):.4f}")
     kernels = []
     # ms, plain_ms, library_ms: device time per call (device_ms); event_ms:
-    # CUDA events around back-to-back calls, the wrapper's host time included
+    # CUDA events around back-to-back calls, the wrapper's host time included.
+    # A kernel's launches are counted on the path that runs it: the default
+    # route's steps, or the route that the kernel serves (K7 solve, K6
+    # fused); K8 is reached by no path.
     for e in entries:
         ms, plain_ms, lib_ms = device_ms(e["fn"]), device_ms(e["plain"], reps=5, warmup=1), \
             device_ms(e["library"])
         event_ms = time_ms(e["fn"])
         b_ms, b_by = bound(e["flops"], e["nbytes"])
         n = e["name"]
-        per_step = {k: v[n] for k, v in step_launches.items()}
+        path = e.get("path", "default")
+        steps = step_launches if path == "default" else route_launches.get(path, {})
+        per_step = {k: v[n] for k, v in steps.items()}
+        if "shape" in e:  # K7 and K6 at A, then at B: one JSON entry, B's numbers nested
+            times = {"ms": ms, "event_ms": event_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": lib_ms}
+            print(f"  {n} at {e['shape']}: " + "  ".join(
+                f"{k} {v:.5f}" if isinstance(v, float) else f"{k} {v}" for k, v in times.items()))
+            if e["shape"] == "B":
+                kernels[-1]["at_B"] = times
+                continue
         print(f"  {n}: kernel {ms:.4f} (events {event_ms:.4f})  plain {plain_ms:.4f}  "
               f"yardstick {lib_ms:.4f}  "
               f"bound {b_ms:.5f} ({b_by})  launches per train step {per_step}, "
@@ -844,11 +1069,17 @@ def main() -> int:
               f"in the analysis {analysis['launches'][n]}")
         kernels.append({
             "name": n, "route": e["route"], "source": e["source"], "replaces": e["replaces"],
-            # launches: the three counted train steps (A, B, C)
-            "launches": sum(per_step.values()), "launches_per_step": per_step,
+            # launches: the counted train steps (A, B, C) of the kernel's path
+            "launches": sum(per_step.values()), "launches_per_step": per_step, "path": path,
             "max_abs_err": errs[n], "ms": ms, "event_ms": event_ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
         })
+    # K6 beside the route it would replace
+    for cfg_name in ("A", "B"):
+        K = flag_chol[cfg_name]
+        print(f"  chol_and_inv's default route (K3 plus products) at {cfg_name} {tuple(K.shape)}: "
+              f"device {device_ms(lambda: dispatch.chol_and_inv(K)):.4f}  "
+              f"events {time_ms(lambda: dispatch.chol_and_inv(K)):.4f}")
     print(f"  sym_gram (K1) at B's shape {tuple(szb.shape)}: "
           f"{time_ms(lambda: sym_gram(zb, invsb, g2b)):.4f}")
 
@@ -871,6 +1102,9 @@ def main() -> int:
             print(f"  {name} {label} end to end: {(time.perf_counter() - t0) / reps * 1e3:.4f} ms "
                   f"(host clock, synchronised)")
     time_training(dev)
+    print(f"  launches per step under each route: default {step_launches}, "
+          f"{ {r: v for r, v in route_launches.items()} }; "
+          f"per loss + predict under the solve route {solve_forward_launches}")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,185 @@
+"""The plain versions of K7 (batched Cholesky), K6 (fused Cholesky and
+triangular inverse) and K8 (chunked 128-block Cholesky), and the backward
+rules around K7 and K6, against the JAX package on the CPU: K7 and K6
+against their Pallas kernels run in interpret mode, K8 against
+``jnp.linalg.cholesky`` (the JAX test's own reference: the Pallas K8 is
+slow in interpret mode).
+
+Tolerances: every side factors in f32 on the CPU; the kernels and the
+plain versions differ from the interpreted TPU kernels by the column
+order of the panel steps and the diagonal blocks' products with their
+inverses, so a factor of a well-conditioned matrix (eigenvalues >= 0.5)
+agrees to 2e-5 absolute (entries O(1)) and its inverse to 5e-5.  The
+backward rules are f32 products and solves on the same factor: each
+gradient is held to 1e-4 of its largest magnitude on its symmetric part
+(the JAX rules return the symmetric gradient too; the test compares
+symmetric parts as tests/test_pallas.py does).
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from vargp_tpu import gpmath as jgm
+from vargp_tpu.ops.pallas.chol import cholesky_pallas
+from vargp_tpu.ops.pallas.chol_inv import _chol_inv_call
+from vargp_tpu_torch.ops import dispatch as tdispatch
+from vargp_tpu_torch.ops.cuda.chol import cholesky, cholesky_plain, tri_inv_plain
+from vargp_tpu_torch.ops.cuda.chol_inv import chol_inv, chol_inv_plain
+from vargp_tpu_torch.ops.cuda.diag_chol import diag_chol_chunked, diag_chol_plain
+
+f32 = np.float32
+# one intra-op thread per test process, as tests/_torch_cases.py sets it
+torch.set_num_threads(1)
+ATOL_L = 2e-5
+ATOL_INV = 5e-5
+TOL_GRAD = 1e-4
+
+
+def _t(a):
+    return torch.tensor(np.asarray(a))
+
+
+def _spd(rng, batch, S, ridge=0.5):
+    A = rng.standard_normal((*batch, S, S)).astype(f32)
+    return (A @ np.swapaxes(A, -1, -2) / f32(S) + f32(ridge) * np.eye(S, dtype=f32)).astype(f32)
+
+
+def _sym(a):
+    a = np.asarray(a)
+    return 0.5 * (a + np.swapaxes(a, -1, -2))
+
+
+@pytest.mark.parametrize("S", [16, 128, 200])
+def test_k7_plain_matches_pallas_interpret(S):
+    K = _spd(np.random.default_rng(S), (3,), S)
+    want = np.asarray(cholesky_pallas(jnp.asarray(K), interpret=True))
+    got = cholesky(_t(K)).numpy()  # CPU tensor: the plain version
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL_L)
+    assert np.all(np.triu(got, 1) == 0.0)
+
+
+@pytest.mark.parametrize("S", [16, 128, 300])
+def test_k6_plain_matches_pallas_interpret(S):
+    K = _spd(np.random.default_rng(S + 1), (3,), S)
+    jL, jX = _chol_inv_call(jnp.asarray(K), interpret=True)
+    L, X = chol_inv(_t(K))  # CPU tensors: the plain version
+    np.testing.assert_allclose(L.numpy(), np.asarray(jL), rtol=0, atol=ATOL_L)
+    np.testing.assert_allclose(X.numpy(), np.asarray(jX), rtol=0, atol=ATOL_INV)
+    np.testing.assert_allclose((X @ L).numpy(), np.broadcast_to(np.eye(S, dtype=f32), K.shape),
+                               atol=ATOL_INV)
+    np.testing.assert_array_equal(L.numpy(), cholesky_plain(_t(K)).numpy())
+
+
+@pytest.mark.parametrize("G", [5, 30])
+def test_k8_plain_matches_jnp_cholesky(G):
+    K = _spd(np.random.default_rng(G), (G,), 128)
+    got = diag_chol_chunked(_t(K)).numpy()  # CPU tensor: the plain version
+    np.testing.assert_allclose(got, np.asarray(jnp.linalg.cholesky(jnp.asarray(K))), atol=ATOL_L)
+    np.testing.assert_array_equal(got, diag_chol_plain(_t(K)).numpy())
+
+
+@pytest.mark.parametrize("S", [77, 256, 300])
+def test_k7_and_k6_plain_read_only_the_lower_triangle(S):
+    """Ragged (77, 300) and whole (256) panels; what lies above the
+    diagonal never enters the factor or its inverse."""
+    K = _spd(np.random.default_rng(S + 2), (2,), S)
+    junk = K + np.triu(np.full_like(K, 7.0), 1)
+    np.testing.assert_array_equal(cholesky_plain(_t(junk)).numpy(), cholesky_plain(_t(K)).numpy())
+    for a, b in zip(chol_inv_plain(_t(junk)), chol_inv_plain(_t(K))):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    np.testing.assert_allclose(cholesky_plain(_t(K)).numpy(), np.linalg.cholesky(K), atol=ATOL_L)
+
+
+def test_tri_inv_plain_matches_jax_tri_inv():
+    K = _spd(np.random.default_rng(4), (2, 3), 128)
+    L = np.linalg.cholesky(K).astype(f32)
+    np.testing.assert_allclose(tri_inv_plain(_t(L)).numpy(), np.asarray(jgm.tri_inv(jnp.asarray(L))),
+                               atol=ATOL_INV)
+
+
+@pytest.mark.parametrize("S,bad", [(300, 150), (128, 5)])
+def test_k7_k6_plain_nan_on_non_positive_pivot(S, bad):
+    """A non-positive pivot gives NaN from that column on, the factor (and
+    inverse) of the leading block intact, an identity matrix's factor
+    exact: no clamp and no swallowed error, as the TPU kernels."""
+    K = np.eye(S, dtype=f32)[None].repeat(2, 0)
+    K[1, bad, bad] = -1.0
+    L = cholesky_plain(_t(K)).numpy()
+    L2, X = (a.numpy() for a in chol_inv_plain(_t(K)))
+    for F in (L, L2, X):
+        np.testing.assert_array_equal(F[0], np.eye(S, dtype=f32))
+        assert np.isnan(F[1, bad, bad]) and np.all(np.isnan(F[1, bad:, bad]))
+        np.testing.assert_array_equal(F[1, :bad, :bad], np.eye(bad, dtype=f32))
+    K = np.eye(128, dtype=f32)[None]
+    K[0, 5, 5] = 0.0
+    assert np.isnan(diag_chol_chunked(_t(K)).numpy()[0, 5, 5])
+
+
+@pytest.mark.parametrize("S", [40, 200])
+def test_cholesky_gradient_matches_jax(S):
+    """``batched_cholesky``'s rule against jax.grad through
+    jnp.linalg.cholesky, which symmetrises its input."""
+    rng = np.random.default_rng(S + 3)
+    K = _spd(rng, (2,), S)
+    W = rng.standard_normal((2, S, S)).astype(f32)
+    want = jax.grad(lambda k: jnp.sum(jnp.linalg.cholesky(k) * W))(jnp.asarray(K))
+    Kt = _t(K).requires_grad_()
+    L = tdispatch.batched_cholesky(Kt)
+    (got,) = torch.autograd.grad(torch.sum(L * _t(W)), Kt)
+    np.testing.assert_allclose(L.detach().numpy(), np.linalg.cholesky(K), atol=ATOL_L)
+    scale = float(np.max(np.abs(_sym(want))))
+    np.testing.assert_allclose(_sym(got.numpy()), _sym(want), rtol=0, atol=TOL_GRAD * scale)
+    np.testing.assert_allclose(got.numpy(), _sym(got.numpy()), rtol=0, atol=1e-6 * scale)
+
+
+@pytest.mark.parametrize("with_inv", [True, False])
+def test_chol_and_inv_fused_gradient_matches_jax_composition(with_inv):
+    """``chol_and_inv_fused`` (K6's plain version here) against
+    jnp.linalg.cholesky and the JAX package's tri_inv; without the
+    inverse's cotangent the rule takes ``Ginv is None``."""
+    rng = np.random.default_rng(8)
+    S = 40
+    K = _spd(rng, (2,), S)
+    wL = rng.standard_normal((2, S, S)).astype(f32)
+    wI = rng.standard_normal((2, S, S)).astype(f32) if with_inv else np.zeros((2, S, S), f32)
+
+    def f_ref(k):
+        L = jnp.linalg.cholesky(k)
+        return jnp.sum(L * wL) + jnp.sum(jgm.tri_inv(L) * wI)
+
+    want = jax.grad(f_ref)(jnp.asarray(K))
+    Kt = _t(K).requires_grad_()
+    L, X = tdispatch.chol_and_inv_fused(Kt)
+    out = torch.sum(L * _t(wL)) + (torch.sum(X * _t(wI)) if with_inv else 0.0)
+    (got,) = torch.autograd.grad(out, Kt)
+    scale = float(np.max(np.abs(_sym(want))))
+    np.testing.assert_allclose(_sym(got.numpy()), _sym(want), rtol=0, atol=TOL_GRAD * scale)
+
+
+def test_cholinv_knob_routes_the_forward_and_raises_on_unknown(monkeypatch):
+    """VARGP_TPU_CHOLINV is read at each call: ``pallas`` takes K6 for the
+    whole batch (its plain version here), ``xla`` the blocked route, and
+    any other value raises."""
+    K = _t(_spd(np.random.default_rng(9), (2,), 300))
+    base = tdispatch.chol_and_inv(K)
+    monkeypatch.setenv("VARGP_TPU_CHOLINV", "pallas")
+    fused = tdispatch.chol_and_inv(K)
+    for a, b, c in zip(fused, chol_inv_plain(K), base):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+        np.testing.assert_allclose(a.numpy(), c.numpy(), atol=ATOL_INV)
+    monkeypatch.setenv("VARGP_TPU_CHOLINV", "xla")
+    np.testing.assert_array_equal(tdispatch.chol_and_inv(K)[0].numpy(), base[0].numpy())
+    monkeypatch.setenv("VARGP_TPU_CHOLINV", "cusolver")
+    with pytest.raises(ValueError, match="VARGP_TPU_CHOLINV"):
+        tdispatch.chol_and_inv(K)
+
+
+def test_wrappers_reject_unknown_devices():
+    K = torch.eye(8).to("meta")
+    for fn in (cholesky, chol_inv, diag_chol_chunked):
+        with pytest.raises(ValueError, match="no kernel for device"):
+            fn(K)
+    assert cholesky.launches == chol_inv.launches == diag_chol_chunked.launches == 0

@@ -160,9 +160,7 @@ def test_eval_budget_cfg_matches_jax(model):
         TV.eval_budget_cfg(tcfg, n_f=0)
 
 
-@pytest.mark.parametrize("override", [
-    {"solve_via_inverse": False}, {"tril_layout": "filled"},
-])
+@pytest.mark.parametrize("override", [{"tril_layout": "filled"}])
 def test_unported_forms_raise(model, override):
     from dataclasses import replace
 

@@ -1,19 +1,37 @@
-"""The auto-regressive joint posterior in whitened-factored form, and the
+"""The auto-regressive joint posterior over the inducing chain, and the
 diagonal predictive marginal read from it.
 
-Counterpart of ``ar_joint_posterior_factored`` and
-``whitened_marginal_diag_factored`` in ``vargp_tpu/gpmath/conditional.py``.
-With L the Cholesky factor of the whole chain's inducing Gram, the joint
-posterior's scale factor is L blockdiag(w) and its mean L v, where
-w_t = inv(L_tt) u_tril_t and v_t = inv(L_tt) u_mean_t; inv(L_tt) are the
-diagonal blocks of L^{-1}.  Neither L blockdiag(w) nor L v is formed.
+Counterpart of the fused path of ``vargp_tpu/gpmath/conditional.py``, in
+its three forms:
+
+- whitened-factored (``ar_joint_posterior_factored``,
+  ``whitened_marginal_diag_factored``; the default): with L the Cholesky
+  factor of the whole chain's inducing Gram, the joint posterior's scale
+  factor is L blockdiag(w) and its mean L v, where w_t = inv(L_tt)
+  u_tril_t and v_t = inv(L_tt) u_mean_t; inv(L_tt) are the diagonal
+  blocks of L^{-1}.  Neither L blockdiag(w) nor L v is formed;
+- materialised (``ar_joint_posterior``: the task-by-task fold, through
+  L^{-1} or by triangular solves; ``ar_joint_posterior_fast``: the
+  closed-form block-LDL build), read by ``whitened_marginal_diag``.
+
+The reference-parity primitives of that module (``gp_cond``,
+``linear_joint``, ``linear_marginal_diag``) are not ported yet.
 """
 
 from typing import NamedTuple, Sequence
 
 import torch
 
-from vargp_tpu_torch.gpmath.linalg import mm_h, mtm_h
+from vargp_tpu_torch.gpmath.linalg import mm_h, mtm_h, tri_half_split, tri_solve
+
+
+class ARPosterior(NamedTuple):
+    """q(u_{<=t} | theta) = N(mean, LS LS^T): mean (..., S, 1), LS
+    (..., S, S) block-lower-triangular.  Leading blocks are the prefix
+    posteriors."""
+
+    mean: torch.Tensor
+    LS: torch.Tensor
 
 
 class ARFactored(NamedTuple):
@@ -75,6 +93,122 @@ def whitened_marginal_diag_factored(
     W4 = W.reshape(*W.shape[:-2], T, M, W.shape[-1])
     C = mtm_h(w, W4)  # (..., T, M, B)
     diag2 = torch.sum(torch.square(C), dim=(-3, -2))
+    # exact value >= diag2 >= 0; the clamp only removes rounding below 0
+    f_var = torch.clamp(Kxx_diag - diag1 + diag2, min=0.0)
+    return f_mean, f_var
+
+
+def ar_joint_posterior(
+    L_full: torch.Tensor,
+    u_means: Sequence[torch.Tensor],
+    u_trils: Sequence[torch.Tensor],
+    L_inv: torch.Tensor | None = None,
+) -> ARPosterior:
+    """Fold the chain task by task into (mean, LS) using sub-blocks of the
+    whole chain's factor: with c rows folded, task t's block is
+    [A mean + u_mean_t] and [A LS, u_tril_t], A X = L21 L11^{-1} X,
+    L11^{-1} taken from ``L_inv``'s leading block or by a triangular
+    solve.  Task blocks may differ in size."""
+    sizes = [u.shape[-2] for u in u_means]
+    batch = torch.broadcast_shapes(L_full.shape[:-2], *[u.shape[:-2] for u in u_means])
+    c = sizes[0]
+    mean = torch.broadcast_to(u_means[0], (*batch, c, 1))
+    LS = torch.broadcast_to(u_trils[0], (*batch, c, c))
+    for t in range(1, len(sizes)):
+        Mt = sizes[t]
+        rhs = torch.cat([mean, LS], dim=-1)
+        if L_inv is not None:
+            w = mm_h(L_inv[..., :c, :c], rhs)
+        else:
+            w = tri_solve(L_full[..., :c, :c], rhs)
+        AX = mm_h(L_full[..., c:c + Mt, :c], w)
+        mean = torch.cat([mean, AX[..., :1] + u_means[t]], dim=-2)
+        top = torch.cat([LS, LS.new_zeros((*batch, c, Mt))], dim=-1)
+        bot = torch.cat([AX[..., 1:], torch.broadcast_to(u_trils[t], (*batch, Mt, Mt))], dim=-1)
+        LS = torch.cat([top, bot], dim=-2)
+        c += Mt
+    return ARPosterior(mean=mean, LS=LS)
+
+
+def ar_joint_posterior_fast(
+    L_full: torch.Tensor,
+    L_inv: torch.Tensor,
+    u_means: Sequence[torch.Tensor],
+    u_trils: Sequence[torch.Tensor],
+) -> ARPosterior:
+    """Closed-form AR joint posterior: mean = L blockdiag(inv(L_tt)) b and
+    LS = L blockdiag(inv(L_tt) u_tril_t), two batched products instead of
+    the fold.  One task is its own posterior; unequal blocks take the
+    fold."""
+    sizes = [u.shape[-2] for u in u_means]
+    batch = torch.broadcast_shapes(L_full.shape[:-2], *[u.shape[:-2] for u in u_means])
+    T, M = len(sizes), sizes[0]
+    S = sum(sizes)
+    if T == 1:
+        return ARPosterior(mean=torch.broadcast_to(u_means[0], (*batch, M, 1)),
+                           LS=torch.broadcast_to(u_trils[0], (*batch, M, M)))
+    if any(m != M for m in sizes):
+        return ar_joint_posterior(L_full, u_means, u_trils, L_inv=L_inv)
+    um = torch.stack([torch.broadcast_to(u, (*batch, M, 1)) for u in u_means])
+    ut = torch.stack([torch.broadcast_to(u, (*batch, M, M)) for u in u_trils])
+    Lb_full = torch.broadcast_to(L_full, (*batch, S, S))
+    Dinv = torch.movedim(_diag_blocks(torch.broadcast_to(L_inv, (*batch, S, S)), T, M), -3, 0)
+    w = mm_h(Dinv, ut)  # (T, *batch, M, M)
+    v = mm_h(Dinv, um)  # (T, *batch, M, 1)
+    Lb = torch.movedim(Lb_full.reshape(*batch, S, T, M), -2, 0)  # (T, *batch, S, M)
+    LS = torch.movedim(mm_h(Lb, w), 0, -2).reshape(*batch, S, S)
+    mean = torch.einsum("t...sm,t...mk->...sk", Lb, v)
+    return ARPosterior(mean=mean, LS=LS)
+
+
+def whitened_marginal_diag(
+    L: torch.Tensor,
+    mean: torch.Tensor,
+    LS: torch.Tensor,
+    Kzx: torch.Tensor,
+    Kxx_diag: torch.Tensor,
+    L_inv: torch.Tensor | None = None,
+):
+    """Diagonal predictive marginal (f_mean, f_var), each (..., B), from the
+    materialised posterior:
+
+      f_mean = Kxz K^{-1} mean,
+      f_var  = Kxx - diag(Kxz K^{-1} Kzx) + diag(Kxz K^{-1} S K^{-1} Kzx),
+
+    the three whitened factors as products with ``L_inv`` or, without it,
+    one triangular solve.  From M = 512 rows the L_inv branch skips the
+    zero upper block of L^{-1} LS on a 2 x 2 split (plain slices)."""
+    M = L.shape[-1]
+    batch = torch.broadcast_shapes(L.shape[:-2], LS.shape[:-2], mean.shape[:-2], Kzx.shape[:-2])
+    diag2 = None
+    if L_inv is not None:
+        Lm = mm_h(L_inv, mean)
+        W = mm_h(L_inv, Kzx)
+        h = tri_half_split(M)
+        if h is not None:
+            a1, a2, a3 = L_inv[..., :h, :h], L_inv[..., h:, :h], L_inv[..., h:, h:]
+            s1, s2, s3 = LS[..., :h, :h], LS[..., h:, :h], LS[..., h:, h:]
+            M11 = mm_h(a1, s1)
+            M21 = mm_h(a2, s1) + mm_h(a3, s2)
+            M22 = mm_h(a3, s3)
+            W1, W2 = W[..., :h, :], W[..., h:, :]
+            Ctop = mtm_h(M11, W1) + mtm_h(M21, W2)
+            Cbot = mtm_h(M22, W2)
+            diag2 = torch.sum(torch.square(Ctop), dim=-2) + torch.sum(torch.square(Cbot), dim=-2)
+        else:
+            LLS = mm_h(L_inv, LS)
+    else:
+        rhs = torch.cat([
+            torch.broadcast_to(mean, (*batch, *mean.shape[-2:])),
+            torch.broadcast_to(LS, (*batch, *LS.shape[-2:])),
+            torch.broadcast_to(Kzx, (*batch, *Kzx.shape[-2:])),
+        ], dim=-1)
+        sol = tri_solve(L, rhs)
+        Lm, LLS, W = sol[..., :1], sol[..., 1:1 + M], sol[..., 1 + M:]
+    f_mean = torch.einsum("...mi,...mb->...b", Lm, W)
+    diag1 = torch.sum(torch.square(W), dim=-2)
+    if diag2 is None:
+        diag2 = torch.sum(torch.square(mtm_h(LLS, W)), dim=-2)
     # exact value >= diag2 >= 0; the clamp only removes rounding below 0
     f_var = torch.clamp(Kxx_diag - diag1 + diag2, min=0.0)
     return f_mean, f_var

@@ -7,7 +7,10 @@ these run at the JAX package's "highest" precision.  The JAX package's
 at least as accurate.  Their gradients are autograd's, in f32: the JAX
 package's hand rules for them (``_dot_fb``, ``_dot_hh``) only choose the
 backward's precision.  The factorisation below is differentiated as a
-whole by ``ops.dispatch.chol_and_inv``'s rule, never through its parts.
+whole by ``ops.dispatch.chol_and_inv``'s rule, never through its parts;
+``cholesky`` by ``ops.dispatch.batched_cholesky``'s.  ``tri_solve`` is
+``torch.linalg.solve_triangular``: the JAX package leaves it to XLA,
+outside any Pallas kernel.
 """
 
 import torch
@@ -22,6 +25,34 @@ _TRI_INV_BLOCK = 128
 def add_jitter(K: torch.Tensor, eps: float = DEFAULT_JITTER) -> torch.Tensor:
     """K + eps*I on the trailing two dims."""
     return K + eps * torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
+
+
+def cholesky(K: torch.Tensor, eps: float = DEFAULT_JITTER) -> torch.Tensor:
+    """Lower Cholesky factor of K + eps*I, through ``ops.dispatch``'s K7."""
+    from vargp_tpu_torch.ops.dispatch import batched_cholesky
+
+    return batched_cholesky(add_jitter(K, eps))
+
+
+def rev_cholesky(L: torch.Tensor) -> torch.Tensor:
+    """L @ L^T."""
+    return torch.matmul(L, L.transpose(-1, -2))
+
+
+def tri_solve(L: torch.Tensor, B: torch.Tensor, *, transpose: bool = False) -> torch.Tensor:
+    """Solve L X = B (or L^T X = B) with L lower-triangular, broadcasting
+    the leading (batch) dims of L and B against each other."""
+    batch = torch.broadcast_shapes(L.shape[:-2], B.shape[:-2])
+    L = torch.broadcast_to(L, (*batch, *L.shape[-2:]))
+    B = torch.broadcast_to(B, (*batch, *B.shape[-2:]))
+    if transpose:
+        return torch.linalg.solve_triangular(L.transpose(-1, -2), B, upper=True)
+    return torch.linalg.solve_triangular(L, B, upper=False)
+
+
+def chol_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve (L L^T) X = B given the lower Cholesky factor L."""
+    return tri_solve(L, tri_solve(L, B), transpose=True)
 
 
 def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,7 @@
 """VAR-GP: the ELBO pieces, the predictive probabilities and the
 construction of a task's parameters.
 
-Counterpart of ``vargp_tpu/models/vargp.py`` with the inverse-based
-solves and the whitened-factored AR posterior, for the RBF-ARD kernel on
+Counterpart of ``vargp_tpu/models/vargp.py``, for the RBF-ARD kernel on
 the inputs and for the deep kernel (``cfg.dkl``: the RBF kernel on the
 features of an MLP, ``params.phi``, trained with the rest).  ``loss`` is
 differentiable: its gradient runs through the hand rules of the Grams and
@@ -17,6 +16,14 @@ the path is an explicit tensor in ``noise``:
 
 ``utils.convert`` builds these from numpy arrays, which is how the tests
 feed the JAX package's own draws to this package.
+
+Routes through the chain's factorisation, as in the JAX package:
+``cfg.solve_via_inverse`` (default) factors K_zz with its inverse
+(``ops.dispatch.chol_and_inv``: K3 plus products, or K6 under
+``VARGP_TPU_CHOLINV=pallas``) and takes the whitened-factored posterior,
+or the materialised one under ``VARGP_TPU_AR_FORM=materialized``;
+``solve_via_inverse=False`` factors it alone (``gpmath.cholesky``, K7),
+builds the materialised posterior and solves against the factor.
 """
 
 from dataclasses import dataclass, replace
@@ -44,7 +51,7 @@ from vargp_tpu_torch.kernels import (
 from vargp_tpu_torch.kernels.deep import DEFAULT_FEATURES
 from vargp_tpu_torch.likelihoods import softmax_loss, softmax_predict
 from vargp_tpu_torch.ops.device import check_on_device, resolve_device
-from vargp_tpu_torch.ops.dispatch import chol_and_inv
+from vargp_tpu_torch.ops.dispatch import _env_choice, chol_and_inv
 from vargp_tpu_torch.train.optim import tree_leaves
 
 
@@ -69,8 +76,8 @@ class VARGPParams(NamedTuple):
 @dataclass(frozen=True)
 class VARGPConfig:
     """Static model configuration; the fields of the JAX package's config.
-    Only the ``solve_via_inverse``, row-major-packed model is ported: other
-    values raise ``NotImplementedError``."""
+    Only the row-major packing of ``u_tril_vec`` is ported: another
+    ``tril_layout`` raises ``NotImplementedError``."""
 
     M: int
     out_size: int
@@ -94,20 +101,34 @@ class ForwardResult(NamedTuple):
 
 class ChainPosterior(NamedTuple):
     """The x-independent state of one forward pass: hyper samples, the
-    chain Gram's factor and inverse, and the whitened-factored posterior."""
+    chain Gram's factor (and its inverse under ``solve_via_inverse``), and
+    the posterior, whitened-factored (``w_blocks``, ``v_mean``) or
+    materialised (``mean``, ``LS``)."""
 
     theta: torch.Tensor  # (H, P+1), P = _theta_size(cfg)
     L: torch.Tensor  # (H, O, S, S)
-    L_inv: torch.Tensor  # (H, O, S, S)
+    L_inv: torch.Tensor | None  # (H, O, S, S)
+    mean: torch.Tensor | None  # (H, O, S, 1)
+    LS: torch.Tensor | None  # (H, O, S, S)
     z_all: torch.Tensor  # (O, S, D)
     u_tril_t: torch.Tensor  # (O, M, M)
-    w_blocks: torch.Tensor  # (H, O, T, M, M)
-    v_mean: torch.Tensor  # (H, O, S, 1)
+    w_blocks: torch.Tensor | None = None  # (H, O, T, M, M)
+    v_mean: torch.Tensor | None = None  # (H, O, S, 1)
+
+
+# chain rows from which the materialised form takes the closed-form
+# block-LDL build instead of the task fold (the JAX package's threshold)
+_FAST_CHAIN_MIN_ROWS = 768
+
+
+def _ar_form() -> str:
+    """The AR posterior's form under ``solve_via_inverse``:
+    ``VARGP_TPU_AR_FORM`` = ``factored`` (default) or ``materialized``,
+    read at each call; an unknown value raises."""
+    return _env_choice("VARGP_TPU_AR_FORM", ("factored", "materialized"), "factored")
 
 
 def _check_supported(cfg: VARGPConfig) -> None:
-    if not cfg.solve_via_inverse:
-        raise NotImplementedError("only solve_via_inverse=True is ported")
     if cfg.tril_layout != "rowmajor":
         raise NotImplementedError(f"tril_layout={cfg.tril_layout!r} is not ported")
 
@@ -192,13 +213,27 @@ def build_posterior(params: VARGPParams, prev: Sequence[TaskPosterior],
     if chain_mask is not None:
         rm = _row_mask(chain_mask, cfg.M)
         Kzz = Kzz * (rm[:, None] * rm[None, :]) + torch.diag(1.0 - rm)
-    L, L_inv = chol_and_inv(gpmath.add_jitter(Kzz, cfg.jitter))
-    # a chain of one task takes the same products as the JAX package's
-    # materialised form at T = 1 (mean = u_mean, scale = u_tril)
-    fpost = gpmath.ar_joint_posterior_factored(L, L_inv, u_means, u_trils)
+    form = _ar_form()
+    if cfg.solve_via_inverse:
+        L, L_inv = chol_and_inv(gpmath.add_jitter(Kzz, cfg.jitter))
+    else:
+        L, L_inv = gpmath.cholesky(Kzz, cfg.jitter), None
+    equal_blocks = all(u.shape[-2] == cfg.M for u in u_means)
+    # a chain of one task takes the factored products, which equal the JAX
+    # package's materialised form at T = 1 (mean = u_mean, scale = u_tril)
+    if L_inv is not None and equal_blocks and (len(u_means) == 1 or form == "factored"):
+        fpost = gpmath.ar_joint_posterior_factored(L, L_inv, u_means, u_trils)
+        return ChainPosterior(
+            theta=theta, L=L, L_inv=L_inv, mean=None, LS=None, z_all=z_all,
+            u_tril_t=u_tril_t, w_blocks=fpost.w, v_mean=fpost.v,
+        )
+    if L_inv is not None and z_all.shape[-2] >= _FAST_CHAIN_MIN_ROWS:
+        post = gpmath.ar_joint_posterior_fast(L, L_inv, u_means, u_trils)
+    else:
+        post = gpmath.ar_joint_posterior(L, u_means, u_trils, L_inv=L_inv)
     return ChainPosterior(
-        theta=theta, L=L, L_inv=L_inv, z_all=z_all, u_tril_t=u_tril_t,
-        w_blocks=fpost.w, v_mean=fpost.v,
+        theta=theta, L=L, L_inv=L_inv, mean=post.mean, LS=post.LS, z_all=z_all,
+        u_tril_t=u_tril_t,
     )
 
 
@@ -216,9 +251,12 @@ def marginal_diag(cp: ChainPosterior, params: VARGPParams, x: torch.Tensor,
         Kzx = cross_gram(cp.theta, cp.z_all, x)  # (H, O, S, B), K4
     if chain_mask is not None:
         Kzx = Kzx * _row_mask(chain_mask, cfg.M)[:, None]
-    return gpmath.whitened_marginal_diag_factored(
-        cp.L_inv, cp.v_mean, cp.w_blocks, Kzx, gram_diag(cp.theta)
-    )
+    kxx_diag = gram_diag(cp.theta)
+    if cp.w_blocks is not None:
+        return gpmath.whitened_marginal_diag_factored(
+            cp.L_inv, cp.v_mean, cp.w_blocks, Kzx, kxx_diag
+        )
+    return gpmath.whitened_marginal_diag(cp.L, cp.mean, cp.LS, Kzx, kxx_diag, L_inv=cp.L_inv)
 
 
 def _check_noise(noise: dict, cfg: VARGPConfig, c: int, B: int, with_kl: bool):
@@ -258,20 +296,27 @@ def forward(params: VARGPParams, prev: Sequence[TaskPosterior],
     if prev:
         L21 = L[..., c:, :c]
         L22 = L[..., c:, c:]  # factor of the conditional prior covariance
-        # u_{<t} ~ q(u_{<t}|theta) drawn in whitened space: the prefix of
-        # the joint posterior is (v[:c], blockdiag(w[:n_prev]))
-        n_prev = c // cfg.M
-        v_lt = cp.v_mean[..., :c, :]
-        eps = noise["prefix_eps"]
-        e4 = eps.reshape(*eps.shape[:-1], n_prev, cfg.M, 1)
-        s = gpmath.mm(cp.w_blocks[..., :n_prev, :, :], e4)
-        w = v_lt + s.reshape(*eps.shape[:-1], c, 1)
+        eps = noise["prefix_eps"]  # (n_v, H, O, c)
+        # w = L11^{-1} u_{<t}, u_{<t} ~ q(u_{<t}|theta), so that the
+        # conditional prior mean is L21 w
+        if cp.w_blocks is not None:
+            # drawn in whitened space: the prefix of the joint posterior is
+            # (v[:c], blockdiag(w[:n_prev]))
+            n_prev = c // cfg.M
+            e4 = eps.reshape(*eps.shape[:-1], n_prev, cfg.M, 1)
+            s = gpmath.mm(cp.w_blocks[..., :n_prev, :, :], e4)
+            w = cp.v_mean[..., :c, :] + s.reshape(*eps.shape[:-1], c, 1)
+        else:
+            u_lt = gpmath.mvn_sample(cp.mean[..., :c, 0], cp.LS[..., :c, :c], eps)
+            if L_inv is not None:
+                w = gpmath.mm(L_inv[..., :c, :c], u_lt[..., None])
+            else:
+                w = gpmath.tri_solve(L[..., :c, :c], u_lt[..., None])
         prior_mu_t = gpmath.mm(L21, w)[..., 0]  # (n_v, H, O, M)
         mask = 1.0 if cfg.ep_var_mean else 0.0
         var_mu_t = prior_mu_t * mask + params.u_mean[..., 0]
-        kl = gpmath.mvn_kl(
-            var_mu_t, cp.u_tril_t, prior_mu_t, L22, Lp_inv=L_inv[..., c:, c:]
-        )  # (n_v, H, O)
+        L22_inv = None if L_inv is None else L_inv[..., c:, c:]
+        kl = gpmath.mvn_kl(var_mu_t, cp.u_tril_t, prior_mu_t, L22, Lp_inv=L22_inv)  # (n_v, H, O)
     else:
         mu = params.u_mean[..., 0]
         kl = gpmath.mvn_kl(mu, cp.u_tril_t, torch.zeros_like(mu), L, Lp_inv=L_inv)

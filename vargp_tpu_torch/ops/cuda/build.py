@@ -35,6 +35,9 @@ _SIGNATURES = {
     "vargp_cross_gram": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "vargp_diag_chol": (_P, _P, _I, _P),
     "vargp_rbf_gram": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "vargp_diag_chol_chunked": (_P, _P, _I, _P),
+    "vargp_chol": (_P, _P, _I, _I, _P),
+    "vargp_chol_inv": (_P, _P, _P, _I, _I, _P),
 }
 
 

@@ -1,9 +1,13 @@
-"""K3: batched lower Cholesky of 128x128 SPD blocks (``csrc/diag_chol.cu``).
+"""K3 and K8: batched lower Cholesky of 128x128 SPD blocks.
 
-Replaces ``vargp_tpu/ops/pallas/chol_panel.py::diag_chol_pallas_t``.  A
-CUDA tensor launches the kernel; a CPU tensor takes
-:func:`diag_chol_plain`.  Both give NaN from a non-positive pivot (no
-clamp, no error swallowed), as the TPU kernel does.  The caller adds the
+K3 (``csrc/diag_chol.cu``, :func:`diag_chol`) replaces
+``vargp_tpu/ops/pallas/chol_panel.py::diag_chol_pallas_t``; K8
+(``csrc/diag_chol_chunked.cu``, :func:`diag_chol_chunked`) replaces
+``diag_chol_pallas`` of the same file, the chunked design of the same
+function (one entry for both of its TPU bodies: no ``unrolled`` flag).
+A CUDA tensor launches the kernel; a CPU tensor takes
+:func:`diag_chol_plain`.  All give NaN from a non-positive pivot (no
+clamp, no error swallowed), as the TPU kernels do.  The caller adds the
 jitter and pads smaller blocks with an identity tail.
 """
 
@@ -31,20 +35,31 @@ def diag_chol_plain(A: torch.Tensor) -> torch.Tensor:
     return L
 
 
-def diag_chol(A: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factor of each (..., 128, 128) block."""
-    if on_cpu(A):
-        return diag_chol_plain(A)
+def _launch_blocks(wrapper, symbol: str, A: torch.Tensor) -> torch.Tensor:
     if A.shape[-2:] != (BS, BS):
-        raise ValueError(f"diag_chol: blocks must be {BS}x{BS}, got {tuple(A.shape)}")
-    check_f32_contiguous("diag_chol", A)
+        raise ValueError(f"{wrapper.__name__}: blocks must be {BS}x{BS}, got {tuple(A.shape)}")
+    check_f32_contiguous(wrapper.__name__, A)
     G = A.numel() // (BS * BS)
-    if G == 0:
-        return torch.empty_like(A)
     out = torch.empty_like(A)
-    launch("vargp_diag_chol", A.device, A.data_ptr(), out.data_ptr(), G)
-    diag_chol.launches += 1
+    if G:
+        launch(symbol, A.device, A.data_ptr(), out.data_ptr(), G)
+        wrapper.launches += 1
     return out
 
 
+def diag_chol(A: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of each (..., 128, 128) block, through K3."""
+    if on_cpu(A):
+        return diag_chol_plain(A)
+    return _launch_blocks(diag_chol, "vargp_diag_chol", A)
+
+
+def diag_chol_chunked(A: torch.Tensor) -> torch.Tensor:
+    """The same factor through K8, which reads only the lower triangle."""
+    if on_cpu(A):
+        return diag_chol_plain(A)
+    return _launch_blocks(diag_chol_chunked, "vargp_diag_chol_chunked", A)
+
+
 diag_chol.launches = 0
+diag_chol_chunked.launches = 0

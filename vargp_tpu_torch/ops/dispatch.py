@@ -1,16 +1,25 @@
-"""Kernel dispatch: the generic RBF Gram and the Gram factorisation, each
+"""Kernel dispatch: the generic RBF Gram and the Gram factorisations, each
 with its backward rule.
 
 Counterpart of ``vargp_tpu/ops/dispatch.py``.  Dispatch is by the
 tensors' device: the kernel wrappers in ``ops.cuda`` launch their kernels
-for CUDA tensors and run their plain versions for CPU tensors.  The
-factorisation takes the JAX package's defaults; it has no environment
-knob.  The generic Gram is always f32 (K5): the JAX package's "high"
+for CUDA tensors and run their plain versions for CPU tensors.  One JAX
+knob is taken over, read at each call with the JAX package's loud-fail
+contract (an unknown value raises): ``VARGP_TPU_CHOLINV`` = ``xla``
+(default: the blocked factorisation, K3 on the diagonal blocks glued by
+products) or ``pallas`` (the fused K6 for the whole batch).  The plain
+Cholesky (``batched_cholesky``) always takes K7: the JAX package's
+``VARGP_TPU_CHOLESKY`` only chose between XLA's factorisation and its
+kernel.  The generic Gram is always f32 (K5): the JAX package's "high"
 (bf16x3) option only chose a cheaper product on the TPU.
 """
 
+import os
+
 import torch
 
+from vargp_tpu_torch.ops.cuda.chol import cholesky as _chol_kernel
+from vargp_tpu_torch.ops.cuda.chol_inv import chol_inv as _chol_inv_kernel
 from vargp_tpu_torch.ops.cuda.rbf_gram import rbf_gram as _rbf_gram_kernel
 
 # Blocked-split rule of vargp_tpu/ops/dispatch.py:185-214.  The upper bound
@@ -20,6 +29,15 @@ _BLOCK_LO, _BLOCK_HI = 96, 128
 _FACTOR_BLOCKED_ABOVE = 160  # the JAX package's _BLOCK_HI on other backends
 _MAX_BLOCKS = 8
 _PAD_WASTE_LIMIT = 0.15
+
+
+def _env_choice(name: str, valid: tuple, default: str) -> str:
+    """Read an environment knob; an unknown value raises rather than select
+    another route (``_env_choice``, vargp_tpu/ops/dispatch.py:74-82)."""
+    v = os.environ.get(name, default)
+    if v not in valid:
+        raise ValueError(f"{name}={v!r}: expected one of {valid}")
+    return v
 
 
 def _pick_block(S: int) -> int | None:
@@ -38,7 +56,10 @@ def _pick_block(S: int) -> int | None:
 
 def _chol_and_inv_fwd(K: torch.Tensor):
     """(chol(K), chol(K)^{-1}) of a batch of SPD matrices (forward of
-    ``_chol_and_inv_impl``)."""
+    ``_chol_and_inv_impl``): K6 for the whole batch under
+    ``VARGP_TPU_CHOLINV=pallas``, else the blocked route."""
+    if _env_choice("VARGP_TPU_CHOLINV", ("xla", "pallas"), "xla") == "pallas":
+        return _chol_inv_kernel(K.contiguous())
     from vargp_tpu_torch.gpmath.linalg import (
         _diag_chol,
         chol_and_inv_blocked,
@@ -64,10 +85,14 @@ def _chol_and_inv_fwd(K: torch.Tensor):
 def _chol_bwd_dense(L, Linv, GL, Ginv):
     """Murray's Cholesky reverse rule with the solves as products with
     Linv (``_chol_and_inv_bwd``, vargp_tpu/ops/dispatch.py:346-373).  The
-    cotangent of Linv joins through d(L^{-1}) = -L^{-1} dL L^{-1}."""
+    cotangent of Linv joins through d(L^{-1}) = -L^{-1} dL L^{-1}; either
+    cotangent may be None (its output unused)."""
     tril = torch.tril(torch.ones(L.shape[-2:], dtype=L.dtype, device=L.device))
     LinvT = Linv.transpose(-1, -2)
-    GL = GL - torch.matmul(torch.matmul(LinvT, Ginv), LinvT) * tril
+    if GL is None:
+        GL = torch.zeros_like(L)
+    if Ginv is not None:
+        GL = GL - torch.matmul(torch.matmul(LinvT, Ginv), LinvT) * tril
     S = torch.matmul(L.transpose(-1, -2), GL)
     Phi = S * tril - 0.5 * torch.diag_embed(torch.diagonal(S, dim1=-2, dim2=-1))
     sym = Phi + Phi.transpose(-1, -2)
@@ -128,7 +153,9 @@ def _chol_bwd_blocked(L, Linv, GL, Ginv, h: int):
 
 
 class _CholAndInv(torch.autograd.Function):
-    """Forward: K3 on the diagonal blocks glued by products.  Backward: the
+    """Forward: K3 on the diagonal blocks glued by products, or K6 under
+    ``VARGP_TPU_CHOLINV=pallas`` (as the JAX package's ``_chol_inv_call``
+    runs inside the same custom VJP).  Backward: the
     all-product rule on the saved (L, L^{-1}), split at ``tri_half_split``
     (S >= 512) as the JAX package's ``_tri_bwd_split`` does by default."""
 
@@ -153,6 +180,59 @@ def chol_and_inv(K: torch.Tensor):
     """(chol(K), chol(K)^{-1}) of a batch of SPD matrices, differentiable
     through the JAX package's hand rule."""
     return _CholAndInv.apply(K)
+
+
+class _CholAndInvFused(torch.autograd.Function):
+    """Forward: K6.  Backward: the dense all-product rule on the saved
+    (L, L^{-1}) (``chol_and_inv_pallas``'s ``_bwd``,
+    vargp_tpu/ops/pallas/chol_inv.py:166-194)."""
+
+    @staticmethod
+    def forward(ctx, K):
+        ctx.set_materialize_grads(False)
+        L, Linv = _chol_inv_kernel(K.contiguous())
+        ctx.save_for_backward(L, Linv)
+        return L, Linv
+
+    @staticmethod
+    def backward(ctx, GL, Ginv):
+        L, Linv = ctx.saved_tensors
+        return _chol_bwd_dense(L, Linv, GL, Ginv)
+
+
+def chol_and_inv_fused(K: torch.Tensor):
+    """(chol(K), chol(K)^{-1}) through K6 whatever the knob says: the
+    counterpart of ``chol_and_inv_pallas``."""
+    return _CholAndInvFused.apply(K)
+
+
+class _Cholesky(torch.autograd.Function):
+    """Forward: K7.  Backward: Murray's rule with triangular solves,
+    Phi = tril(L^T L_bar) with halved diagonal and
+    K_bar = 1/2 L^{-T} (Phi + Phi^T) L^{-1}: the symmetric gradient that
+    ``jnp.linalg.cholesky`` (which symmetrises its input) gives."""
+
+    @staticmethod
+    def forward(ctx, K):
+        L = _chol_kernel(K.contiguous())
+        ctx.save_for_backward(L)
+        return L
+
+    @staticmethod
+    def backward(ctx, GL):
+        (L,) = ctx.saved_tensors
+        Lt = L.transpose(-1, -2)
+        P = torch.tril(torch.matmul(Lt, GL))
+        Phi = P - 0.5 * torch.diag_embed(torch.diagonal(P, dim1=-2, dim2=-1))
+        sym = Phi + Phi.transpose(-1, -2)
+        Y = torch.linalg.solve_triangular(Lt, sym, upper=True)  # L^{-T} sym
+        return 0.5 * torch.linalg.solve_triangular(Lt, Y.transpose(-1, -2), upper=True).transpose(-1, -2)
+
+
+def batched_cholesky(K: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of a batch of SPD matrices (jitter applied by
+    the caller) through K7, differentiable."""
+    return _Cholesky.apply(K)
 
 
 class _RbfGram(torch.autograd.Function):
