@@ -14,10 +14,12 @@ result) on a failure:
    Cholesky, K4 cross-Gram, K5 generic Gram on pre-scaled inputs, K6 fused
    Cholesky and triangular inverse, K7 batched Cholesky, K8 chunked
    diagonal-block Cholesky) held against its plain PyTorch version on the
-   card, at the shapes of the paths and at a ragged shape; K1, K2 and K5's
-   K_zz (sx == sy) must be bitwise symmetric, K3, K6, K7 and K8 must give
-   NaN on a non-positive pivot where their plain versions do, and K6's
-   L^-1 L must be the identity;
+   card, at the shapes of the paths and at a ragged shape (K6 and K7 also
+   at one panel, a one-row last panel and each cluster size their wrapper
+   picks: 1, 4 and 8 blocks per matrix); K1, K2 and K5's K_zz (sx == sy)
+   must be bitwise symmetric, K3, K6, K7 and K8 must give NaN on a
+   non-positive pivot where their plain versions do, and K6's L^-1 L must
+   be the identity;
 4. the forward path: ``loss`` and ``predict`` of the flagship VAR-GP model
    (A, Split-MNIST task 4: a 5-task chain, M=60, 10 classes, D=784, B=512,
    3 hyper samples, 10 function samples; random weights from a numpy seed)
@@ -49,7 +51,10 @@ result) on a failure:
 8. timings: each kernel, its plain version and one PyTorch yardstick call
    the port never makes, in device time per call (``torch.profiler``), and
    the kernel also with CUDA events around back-to-back calls (K6 and K7
-   at A's and B's shapes, K6 beside the default blocked factorisation);
+   at A's and B's shapes, also cold: a 256 MB buffer written between
+   calls, CUDA events around each; K6 beside the default blocked
+   factorisation, K7 beside ``torch.linalg.cholesky``, both at one panel
+   beside K8);
    K1 at B's shape beside K2; ``loss`` and ``predict`` end to end; the
    forward, forward + backward and whole step of training at A, B and C,
    and the step under the solve and fused routes (CUDA events).
@@ -99,6 +104,9 @@ ANALYSIS = dict(n_f=50, n_var_samples=20, batch_size=512, seed=5, replay_cell=(1
 # and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# K6 and K7 multiply on the tensor cores in 3xTF32: three TF32 products
+# (495 TFLOP/s dense) per f32 product
+PEAK_TF32X3_FLOPS = 495e12 / 3
 
 # Tolerances, each against the plain version on the same card and inputs.
 # Grams: values lie in [0, gamma2]; the kernel and the plain einsum sum the
@@ -146,11 +154,15 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def device_ms(fn, reps: int = 20, warmup: int = 3, one_kernel: bool = False) -> float:
     """Mean device time of ``fn`` per call: the summed durations of the
     kernels it launches, traced by ``torch.profiler`` over ``reps`` calls
     after warm-up.  Unlike ``time_ms`` it leaves out the host's time between
-    launches, which a kernel of a few microseconds cannot hide."""
+    launches, which a kernel of a few microseconds cannot hide.  The trace
+    can miss launches (seen for the kernel library's launches: K6 at B
+    traced at half its CUDA-event time), so for ``fn`` that launches one
+    kernel (``one_kernel``) the mean is taken over the traced launches and
+    their count is printed when some are missing."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -162,14 +174,37 @@ def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
                 fn()
             torch.cuda.synchronize()
         kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels and one_kernel:
+            if len(kernels) < reps:
+                print(f"  (the profiler traced {len(kernels)} of {reps} launches)")
+            return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / len(kernels)
         if kernels:
             return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
         print(f"  (the profiler traced no device time, trace {attempt + 1} of 3)")
     raise AssertionError("the profiler traced no device time")
 
 
-def bound(flops: float, nbytes: float):
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+def cold_ms(fn, reps: int = 10, flush_bytes: int = 256 << 20) -> float:
+    """Mean time of one call of ``fn`` that finds the 50 MB L2 cold: a
+    256 MB buffer is written before each call, and CUDA events bracket the
+    call alone (the host queues them while the write runs, so they time
+    the kernel and not the host)."""
+    buf = torch.empty(flush_bytes // 4, device="cuda")
+    fn()
+    pairs = []
+    for i in range(reps):
+        buf.fill_(float(i))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / reps
+
+
+def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -422,10 +457,10 @@ def check_k5(dev):
     return err, flag
 
 
-def check_nan_pivot(label, fn, plain, S, bad):
+def check_nan_pivot(label, fn, plain, S, bad, G=2):
     """A non-positive pivot must give NaN in the same places as the plain
     version, and an identity matrix's factor must come back exact."""
-    A = torch.eye(S, device="cuda").repeat(2, 1, 1)
+    A = torch.eye(S, device="cuda").repeat(G, 1, 1)
     A[1, bad, bad] = -1.0
     outs, refs = fn(A), plain(A)
     torch.cuda.synchronize()
@@ -439,24 +474,29 @@ def check_nan_pivot(label, fn, plain, S, bad):
         fin = ~torch.isnan(o)
         check(f"{label} non-positive pivot at {bad} (finite part)", max_abs_err(o[fin], r[fin]),
               TOL_CHOL)
-    print(f"  {label} non-positive pivot: NaN where the plain version has NaN")
+    print(f"  {label} {tuple(A.shape)} non-positive pivot at {bad}: NaN where the plain version "
+          f"has NaN")
 
 
 def check_chol_kernels(dev):
     """K8, K7 and K6 against their plain versions on the card: K8 at
-    (30, 128, 128) and (200, 128, 128), K7 and K6 at A's and B's shapes,
-    at (6, 128, 128) and at a ragged S = 200; K6's L^-1 L - I; NaN from a
-    non-positive pivot.  Only the lower triangle is read, so the inputs
-    carry junk above the diagonal.  Returns the largest errors and the
-    inputs for timing."""
-    from vargp_tpu_torch.ops.cuda.chol import cholesky, cholesky_plain
+    (30, 128, 128) and (200, 128, 128); K7 and K6 at A's and B's shapes, at
+    (6, 128, 128), at a ragged S = 200, at one panel (30, 128, 128), at a
+    one-row last panel (30, 129, 129), and at the cluster sizes the wrapper
+    can pick besides A's 4: (200, 300, 300) gives 1, (1, 1000, 1000) gives
+    8; K6's L^-1 L - I; NaN from a non-positive pivot at each cluster size.
+    Only the lower triangle is read, so the inputs carry junk above the
+    diagonal.  Returns the largest errors, the inputs for timing and the
+    cluster size of each shape."""
+    from vargp_tpu_torch.ops.cuda.chol import cholesky, cholesky_plain, cluster_size
     from vargp_tpu_torch.ops.cuda.chol_inv import chol_inv, chol_inv_plain
     from vargp_tpu_torch.ops.cuda.diag_chol import diag_chol_chunked, diag_chol_plain
 
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     rng = np.random.default_rng(SEED + 5)
     junk = lambda K: K + torch.triu(torch.full_like(K, 7.0), 1)
     errs = {"diag_chol_chunked": 0.0, "cholesky": 0.0, "chol_inv": 0.0}
-    flag = {}
+    flag, clusters = {}, {}
     for G in (30, 200):
         K = spd_blocks(rng, G, dev)
         before = diag_chol_chunked.launches
@@ -471,7 +511,8 @@ def check_chol_kernels(dev):
         flag.setdefault("K8", K)
     A, B = FLAGSHIP, PMNIST_LAST
     shapes = {"A": (A["H"] * A["O"], A["n_tasks"] * A["M"]), "B": (B["H"] * B["O"], B["n_tasks"] * B["M"]),
-              "one panel": (6, 128), "ragged": (30, 200)}
+              "six blocks": (6, 128), "ragged": (30, 200), "one panel": (30, 128),
+              "one-row last panel": (30, 129), "analysis": (200, 300), "one matrix": (1, 1000)}
     for label, (G, S) in shapes.items():
         K = spd_blocks(rng, G, dev, S)
         b7, b6 = cholesky.launches, chol_inv.launches
@@ -480,6 +521,8 @@ def check_chol_kernels(dev):
         torch.cuda.synchronize()
         if (cholesky.launches, chol_inv.launches) != (b7 + 1, b6 + 1):
             raise AssertionError("K7's or K6's launch counter did not count its launch")
+        clusters[label] = cluster_size(G, n_sm)
+        print(f"  K7/K6 at {label} {tuple(K.shape)}: cluster of {clusters[label]} blocks per matrix")
         ref = cholesky_plain(K)
         e = max_abs_err(L, ref)
         check(f"K7 cholesky {label} {tuple(K.shape)}", e, TOL_CHOL, float(ref.abs().max()))
@@ -491,12 +534,14 @@ def check_chol_kernels(dev):
         errs["chol_inv"] = max(errs["chol_inv"], e6)
         check(f"K6 chol_inv {label}: L^-1 L - I", max_abs_err(X @ L6, torch.eye(S, device=dev)),
               TOL_CHOL)
-        if label in ("A", "B"):
+        if label in ("A", "B", "one panel"):
             flag[label] = K
     check_nan_pivot("K8 diag_chol_chunked", diag_chol_chunked, diag_chol_plain, 128, 5)
-    check_nan_pivot("K7 cholesky", cholesky, cholesky_plain, 300, 150)
-    check_nan_pivot("K6 chol_inv", chol_inv, chol_inv_plain, 300, 150)
-    return errs, flag
+    for G, S, bad in ((2, 300, 150), (30, 300, 150), (200, 300, 150), (2, 1000, 700), (2, 129, 128)):
+        print(f"  (cluster of {cluster_size(G, n_sm)} at G = {G})")
+        check_nan_pivot("K7 cholesky", cholesky, cholesky_plain, S, bad, G)
+        check_nan_pivot("K6 chol_inv", chol_inv, chol_inv_plain, S, bad, G)
+    return errs, flag, clusters
 
 
 # wrapper name -> its module under vargp_tpu_torch.ops.cuda
@@ -907,7 +952,7 @@ def main() -> int:
     errs, flag = check_kernels(dev)
     errs["sym_gram_tri"], flag_b = check_k2(dev)
     errs["rbf_gram"], flag_c = check_k5(dev)
-    errs_chol, flag_chol = check_chol_kernels(dev)
+    errs_chol, flag_chol, clusters = check_chol_kernels(dev)
     errs.update(errs_chol)
 
     forward_launches = {name: check_forward(name, dev) for name in ("A", "C")}
@@ -1032,6 +1077,7 @@ def main() -> int:
             entries.append(dict(
                 name=n, shape=cfg_name, route="cuda", source=f"vargp_tpu_torch/csrc/{src}",
                 replaces=f"vargp_tpu/ops/pallas/{rpl}", path=path,
+                cluster=clusters[cfg_name], peak=PEAK_TF32X3_FLOPS,
                 fn=functools.partial(fn, K), plain=functools.partial(plain, K),
                 library=functools.partial(lib, K), **chol_work(K, n_out, n_f),
             ))
@@ -1045,17 +1091,18 @@ def main() -> int:
     # route's steps, or the route that the kernel serves (K7 solve, K6
     # fused); K8 is reached by no path.
     for e in entries:
-        ms, plain_ms, lib_ms = device_ms(e["fn"]), device_ms(e["plain"], reps=5, warmup=1), \
-            device_ms(e["library"])
+        ms = device_ms(e["fn"], one_kernel=e["name"] != "rbf_gram")  # K5's entry runs both Grams
+        plain_ms, lib_ms = device_ms(e["plain"], reps=5, warmup=1), device_ms(e["library"])
         event_ms = time_ms(e["fn"])
-        b_ms, b_by = bound(e["flops"], e["nbytes"])
+        b_ms, b_by = bound(e["flops"], e["nbytes"], e.get("peak", PEAK_F32_FLOPS))
         n = e["name"]
         path = e.get("path", "default")
         steps = step_launches if path == "default" else route_launches.get(path, {})
         per_step = {k: v[n] for k, v in steps.items()}
         if "shape" in e:  # K7 and K6 at A, then at B: one JSON entry, B's numbers nested
-            times = {"ms": ms, "event_ms": event_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": lib_ms}
+            times = {"ms": ms, "event_ms": event_ms, "cold_ms": cold_ms(e["fn"]),
+                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": lib_ms, "cluster": e["cluster"]}
             print(f"  {n} at {e['shape']}: " + "  ".join(
                 f"{k} {v:.5f}" if isinstance(v, float) else f"{k} {v}" for k, v in times.items()))
             if e["shape"] == "B":
@@ -1074,12 +1121,26 @@ def main() -> int:
             "max_abs_err": errs[n], "ms": ms, "event_ms": event_ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
         })
-    # K6 beside the route it would replace
+        if "shape" in e:  # K7 and K6: A's cold time and cluster size beside the warm numbers
+            kernels[-1].update(cold_ms=times["cold_ms"], cluster=times["cluster"])
+    # K6 beside the route it would replace, K7 beside torch.linalg.cholesky
     for cfg_name in ("A", "B"):
         K = flag_chol[cfg_name]
+        blocked = device_ms(lambda: dispatch.chol_and_inv(K))
+        k6 = [k for k in kernels if k["name"] == "chol_inv"][0]
+        k7 = [k for k in kernels if k["name"] == "cholesky"][0]
+        k6, k7 = (k if cfg_name == "A" else k["at_B"] for k in (k6, k7))
         print(f"  chol_and_inv's default route (K3 plus products) at {cfg_name} {tuple(K.shape)}: "
-              f"device {device_ms(lambda: dispatch.chol_and_inv(K)):.4f}  "
-              f"events {time_ms(lambda: dispatch.chol_and_inv(K)):.4f}")
+              f"device {blocked:.4f}  events {time_ms(lambda: dispatch.chol_and_inv(K)):.4f}; "
+              f"K6 {k6['ms']:.4f} ({'faster' if k6['ms'] < blocked else 'SLOWER'}); "
+              f"K7 {k7['ms']:.4f} against torch.linalg.cholesky {k7['library_ms']:.4f} "
+              f"({'faster' if k7['ms'] < k7['library_ms'] else 'SLOWER'})")
+    # one panel: K7's and K6's time is the diagonal step alone, beside K8's
+    K = flag_chol["one panel"]
+    one = {n: device_ms(f, one_kernel=True) for n, f in (
+        ("K7", lambda: cholesky(K)), ("K6", lambda: chol_inv(K)), ("K8", lambda: diag_chol_chunked(K)))}
+    print(f"  one panel {tuple(K.shape)}, device time: " + "  ".join(f"{n} {v:.4f}" for n, v in one.items())
+          + f"; CUDA events: K7 {time_ms(lambda: cholesky(K)):.4f}  K6 {time_ms(lambda: chol_inv(K)):.4f}")
     print(f"  sym_gram (K1) at B's shape {tuple(szb.shape)}: "
           f"{time_ms(lambda: sym_gram(zb, invsb, g2b)):.4f}")
 

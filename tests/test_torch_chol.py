@@ -14,6 +14,11 @@ backward rules are f32 products and solves on the same factor: each
 gradient is held to 1e-4 of its largest magnitude on its symmetric part
 (the JAX rules return the symmetric gradient too; the test compares
 symmetric parts as tests/test_pallas.py does).
+
+The kernels compute their products in 3xTF32 on the tensor cores; a test
+here runs the plain panel algorithm through an emulation of that
+arithmetic (the helpers below, not in the package) and holds the factor
+to the smoke test's tolerance, 1e-4 absolute, of a float64 factor.
 """
 
 import numpy as np
@@ -26,7 +31,8 @@ from vargp_tpu import gpmath as jgm
 from vargp_tpu.ops.pallas.chol import cholesky_pallas
 from vargp_tpu.ops.pallas.chol_inv import _chol_inv_call
 from vargp_tpu_torch.ops import dispatch as tdispatch
-from vargp_tpu_torch.ops.cuda.chol import cholesky, cholesky_plain, tri_inv_plain
+from vargp_tpu_torch.ops.cuda.chol import (blocked_plain, cholesky, cholesky_plain, cluster_size,
+                                            tri_inv_plain)
 from vargp_tpu_torch.ops.cuda.chol_inv import chol_inv, chol_inv_plain
 from vargp_tpu_torch.ops.cuda.diag_chol import diag_chol_chunked, diag_chol_plain
 
@@ -36,6 +42,7 @@ torch.set_num_threads(1)
 ATOL_L = 2e-5
 ATOL_INV = 5e-5
 TOL_GRAD = 1e-4
+TOL_CHOL = 1e-4  # chip_smoke.py's tolerance of K6 and K7 against their plain versions
 
 
 def _t(a):
@@ -183,3 +190,62 @@ def test_wrappers_reject_unknown_devices():
         with pytest.raises(ValueError, match="no kernel for device"):
             fn(K)
     assert cholesky.launches == chol_inv.launches == diag_chol_chunked.launches == 0
+
+
+def _tf32(a: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 as cvt.rna.tf32.f32 rounds: to nearest with ties
+    away from zero, 10 mantissa bits kept (on the int32 view: add half of
+    the dropped 13 bits to the magnitude, then clear them)."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm3(a, b):
+    """The kernels' 3xTF32 product: big = tf32(x), small = tf32(x - big),
+    small*big + big*small + big*big summed in f32."""
+    ab, bb = _tf32(a), _tf32(b)
+    asm, bsm = _tf32(a - ab), _tf32(b - bb)
+    return torch.matmul(asm, bb) + torch.matmul(ab, bsm) + torch.matmul(ab, bb)
+
+
+def _mm1(a, b):
+    return torch.matmul(_tf32(a), _tf32(b))
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                      1.0 + 2.0 ** -12, 3.0e-8], dtype=torch.float32)
+    want = torch.tensor([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -9, -(1.0 + 2.0 ** -10), 1.0,
+                         float(np.float32(3.0e-8))], dtype=torch.float64)
+    got = _tf32(x).double()
+    np.testing.assert_array_equal(got[:5].numpy(), want[:5].numpy())
+    assert abs(float(got[5]) - 3.0e-8) <= 3.0e-8 * 2.0 ** -11
+
+
+def test_3xtf32_products_keep_the_factor_at_f32_accuracy():
+    """blocked_plain's products through the 3-term split at B's S = 1000
+    (two matrices made as chip_smoke.py's spd_blocks): the factor within
+    TOL_CHOL of the float64 factor and no further from it than twice the
+    f32 plain factor; one 3-term product within f32 rounding of the
+    float64 product.  One TF32 product per term is printed for contrast."""
+    rng = np.random.default_rng(10)
+    K = _t(_spd(rng, (2,), 1000))
+    L64 = torch.linalg.cholesky(K.double())
+    err = lambda L: float((L.double() - L64).abs().max())
+    e32, e3, e1 = (err(blocked_plain(K, mm)[0]) for mm in (torch.matmul, _mm3, _mm1))
+    print(f"max |L - L_f64| at (2, 1000, 1000): f32 products {e32:.3e}, 3xTF32 {e3:.3e}, "
+          f"1xTF32 {e1:.3e}")
+    assert e3 <= TOL_CHOL and e3 <= 2 * e32
+    a = torch.tensor(rng.standard_normal((128, 128)), dtype=torch.float32)
+    b = torch.tensor(rng.standard_normal((128, 128)), dtype=torch.float32)
+    exact = a.double() @ b.double()
+    rounding = 128 * 2.0 ** -24 * (a.abs().double() @ b.abs().double())  # k u sum |a||b|
+    assert bool(torch.all((_mm3(a, b).double() - exact).abs() <= rounding))
+    assert not bool(torch.all((_mm1(a, b).double() - exact).abs() <= rounding))
+
+
+@pytest.mark.parametrize("G,C", [(1, 8), (16, 8), (17, 4), (30, 4), (33, 4), (34, 2), (66, 2),
+                                 (67, 1), (200, 1)])
+def test_cluster_size_on_132_sms(G, C):
+    """One cluster per matrix: the largest power of two <= min(8, 132 // G)."""
+    assert cluster_size(G, 132) == C

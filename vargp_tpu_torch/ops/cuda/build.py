@@ -36,8 +36,8 @@ _SIGNATURES = {
     "vargp_diag_chol": (_P, _P, _I, _P),
     "vargp_rbf_gram": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "vargp_diag_chol_chunked": (_P, _P, _I, _P),
-    "vargp_chol": (_P, _P, _I, _I, _P),
-    "vargp_chol_inv": (_P, _P, _P, _I, _I, _P),
+    "vargp_chol": (_P, _P, _I, _I, _I, _P),  # K, L, G, S, cluster size, stream
+    "vargp_chol_inv": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 
@@ -94,6 +94,27 @@ def build() -> Path:
     return so
 
 
+def resource_usage(names: list[str] | None = None, csrc: Path = CSRC) -> str:
+    """What ``ptxas -v`` reports for each kernel of the named sources in
+    ``csrc`` (all by default): registers, spills, shared memory.  Compiles
+    each source to a throwaway object; the library is not touched."""
+    import tempfile
+
+    nvcc = find_nvcc()
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    out = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for src in sorted(Path(csrc).glob("*.cu")):
+            if names and src.name not in names:
+                continue
+            cmd = [nvcc, *flags, "-Xptxas", "-v", "-c", "-o", f"{tmp}/{src.stem}.o", str(src)]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(f"{' '.join(cmd)} failed:\n{res.stdout}{res.stderr}")
+            out.append(f"== {src.name}\n{res.stdout}{res.stderr}")
+    return "\n".join(out)
+
+
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
@@ -139,3 +160,15 @@ def launch(name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{name}: launch refused") from torch.cuda.CudaError(
             status
         )
+
+
+if __name__ == "__main__":
+    # python -m vargp_tpu_torch.ops.cuda.build [--csrc DIR] [source.cu ...]:
+    # ptxas's report of registers, spills and shared memory per kernel
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--csrc", type=Path, default=CSRC)
+    ap.add_argument("names", nargs="*")
+    args = ap.parse_args()
+    print(resource_usage(args.names or None, args.csrc))
