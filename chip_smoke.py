@@ -14,12 +14,16 @@ result) on a failure:
    Cholesky, K4 cross-Gram, K5 generic Gram on pre-scaled inputs, K6 fused
    Cholesky and triangular inverse, K7 batched Cholesky, K8 chunked
    diagonal-block Cholesky) held against its plain PyTorch version on the
-   card, at the shapes of the paths and at a ragged shape (K6 and K7 also
-   at one panel, a one-row last panel and each cluster size their wrapper
-   picks: 1, 4 and 8 blocks per matrix); K1, K2 and K5's K_zz (sx == sy)
-   must be bitwise symmetric, K3, K6, K7 and K8 must give NaN on a
-   non-positive pivot where their plain versions do, and K6's L^-1 L must
-   be the identity;
+   card, at the shapes of the paths and at a ragged shape (K3 also on
+   blocks 1, 33, 100, 125 and 128 wide read in place from matrices with
+   row strides 300, 1000 and 875, at G = 200, and on the first diagonal
+   blocks of A's, B's and the analysis's Grams as the paths hand them
+   over: (30, 100, 100), (30, 125, 125), (200, 100, 100); K6 and K7 also at one
+   panel, a one-row last panel and each cluster size their wrapper picks:
+   1, 4 and 8 blocks per matrix); K1, K2 and K5's K_zz (sx == sy) must be
+   bitwise symmetric, K3, K6, K7 and K8 must give NaN on a non-positive
+   pivot where their plain versions do (K3 also in a 100-wide block), and
+   K6's L^-1 L must be the identity;
 4. the forward path: ``loss`` and ``predict`` of the flagship VAR-GP model
    (A, Split-MNIST task 4: a 5-task chain, M=60, 10 classes, D=784, B=512,
    3 hyper samples, 10 function samples; random weights from a numpy seed)
@@ -49,15 +53,21 @@ result) on a failure:
    notebooks' budgets (n_f=50, n_var_samples=20), with one cell's first
    batch replayed on the CPU from the same draws;
 8. timings: each kernel, its plain version and one PyTorch yardstick call
-   the port never makes, in device time per call (``torch.profiler``), and
-   the kernel also with CUDA events around back-to-back calls (K6 and K7
-   at A's and B's shapes, also cold: a 256 MB buffer written between
-   calls, CUDA events around each; K6 beside the default blocked
-   factorisation, K7 beside ``torch.linalg.cholesky``, both at one panel
-   beside K8);
+   the port never makes, in device time per call (``torch.profiler``; when
+   a trace comes back with no device event, CUDA events with the host
+   queued ahead of the card), and
+   the kernel also with CUDA events around back-to-back calls (K3, K8,
+   and K6 and K7 at A's and B's shapes, also cold: a 256 MB buffer
+   written between calls, CUDA events around each; K3 also at the
+   diagonal blocks of A's, B's and the analysis's factorisations and at
+   G = 200, each beside ``torch.linalg.cholesky`` on the same view; K6
+   beside the default blocked factorisation, K7 beside
+   ``torch.linalg.cholesky``, all four at one panel);
    K1 at B's shape beside K2; ``loss`` and ``predict`` end to end; the
    forward, forward + backward and whole step of training at A, B and C,
-   and the step under the solve and fused routes (CUDA events).
+   and the step under the solve and fused routes (CUDA events); the
+   default step's kernel launches and device-busy time under
+   ``torch.profiler``.
 
 The line before the last two is one JSON object ``{"kernels": [...]}``; then
 the card's ``nvidia-smi`` name and power limit; the last line is
@@ -154,6 +164,32 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def queued_ms(fn, reps: int = 20) -> float:
+    """Mean time of ``fn`` per call with the host kept ahead of the card: the
+    stream sleeps for at least twice the host's time to queue ``reps`` calls
+    while the host queues them between two CUDA events, so the span holds
+    the card's work back to back and none of the host's time between
+    launches.  A note is printed when the host still fell behind (the start
+    event had run before the last call was queued)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(host_s * 4e9, 2e9)) + 1_000_000)  # cycles: >= 2x host_s below 2 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    if start.query():
+        print("  (the host fell behind the card: the events include time between launches)")
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def device_ms(fn, reps: int = 20, warmup: int = 3, one_kernel: bool = False) -> float:
     """Mean device time of ``fn`` per call: the summed durations of the
     kernels it launches, traced by ``torch.profiler`` over ``reps`` calls
@@ -162,7 +198,9 @@ def device_ms(fn, reps: int = 20, warmup: int = 3, one_kernel: bool = False) -> 
     can miss launches (seen for the kernel library's launches: K6 at B
     traced at half its CUDA-event time), so for ``fn`` that launches one
     kernel (``one_kernel``) the mean is taken over the traced launches and
-    their count is printed when some are missing."""
+    their count is printed when some are missing.  The trace can also come
+    back with no device event at all; after three such traces the time is
+    taken by ``queued_ms`` instead, and a note says so."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -181,7 +219,8 @@ def device_ms(fn, reps: int = 20, warmup: int = 3, one_kernel: bool = False) -> 
         if kernels:
             return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
         print(f"  (the profiler traced no device time, trace {attempt + 1} of 3)")
-    raise AssertionError("the profiler traced no device time")
+    print("  (timed with CUDA events instead, the host queued ahead of the card)")
+    return queued_ms(fn, reps)
 
 
 def cold_ms(fn, reps: int = 10, flush_bytes: int = 256 << 20) -> float:
@@ -324,16 +363,15 @@ def flagship_model(device, seed=SEED, shape=FLAGSHIP, dkl=False):
 
 
 def check_kernels(dev):
-    """Each kernel against its plain version on the card; returns the
+    """K1 and K4 against their plain versions on the card; returns the
     largest error per kernel and the flagship-shaped inputs for timing."""
     from vargp_tpu_torch.ops.cuda.cross_gram import cross_gram, cross_gram_plain
-    from vargp_tpu_torch.ops.cuda.diag_chol import diag_chol, diag_chol_plain
     from vargp_tpu_torch.ops.cuda.sym_gram import sym_gram, sym_gram_plain
 
     f = FLAGSHIP
     rng = np.random.default_rng(SEED + 1)
     S = f["n_tasks"] * f["M"]
-    errs = {"sym_gram": 0.0, "cross_gram": 0.0, "diag_chol": 0.0}
+    errs = {"sym_gram": 0.0, "cross_gram": 0.0}
     flag = {}
     for label, (O, M, D, H, B) in (
         ("flagship", (f["O"], S, f["D"], f["H"], f["B"])),
@@ -359,29 +397,66 @@ def check_kernels(dev):
         if label == "flagship":
             flag.update(z=z, x=x, invs=invs, invs2=invs2, gamma2=gamma2)
 
-    G = f["H"] * f["O"]
-    for label, A in (("flagship", spd_blocks(rng, G, dev)), ("ragged", spd_blocks(rng, 5, dev))):
+    return errs, flag
+
+
+# K3's blocks as the default route hands them over: A's and C's 100-wide
+# and B's 125-wide diagonal blocks are views of the chain's Gram (row
+# strides 300 and 1000, then the trailing matrices' 200, 875, 750, ...).
+# Each (row stride, offset on the diagonal): rows of 300 and 1000 floats
+# at offsets 0 and 128 start on 16 bytes (the cp.async path when h is a
+# multiple of 4); rows of 875 floats do not (the L2-load path).
+K3_VIEWS = {300: 0, 1000: 128, 875: 125}
+K3_WIDTHS = (1, 33, 100, 125, 128)
+
+
+def junk_above(K):
+    """K with 7 above the diagonal: the kernels read only the lower triangle."""
+    return K + torch.triu(torch.full_like(K, 7.0), 1)
+
+
+def compare_k3(cases: dict) -> float:
+    """K3 against its plain version on each input of ``cases`` (label:
+    blocks), each launch counted; returns the largest error."""
+    from vargp_tpu_torch.ops.cuda.diag_chol import diag_chol, diag_chol_plain
+
+    err = 0.0
+    for label, A in cases.items():
+        before = diag_chol.launches
         L = diag_chol(A)
         torch.cuda.synchronize()
+        if diag_chol.launches != before + 1:
+            raise AssertionError("K3's launch counter did not count its launch")
         ref = diag_chol_plain(A)
         e = max_abs_err(L, ref)
         check(f"K3 diag_chol {label} {tuple(A.shape)}", e, TOL_CHOL, float(ref.abs().max()))
-        errs["diag_chol"] = max(errs["diag_chol"], e)
-        if label == "flagship":
-            flag["spd"] = A
-    # a non-positive pivot must give NaN, in the same places as the plain version
-    A = torch.eye(128, device=dev).repeat(2, 1, 1)
-    A[1, 5, 5] = -1.0
-    L, Lp = diag_chol(A), diag_chol_plain(A)
-    torch.cuda.synchronize()
-    if not (torch.isnan(L[1, 5, 5]) and torch.equal(torch.isnan(L), torch.isnan(Lp))):
-        raise AssertionError("K3 does not give NaN where the plain version does")
-    if not torch.equal(L[0], torch.eye(128, device=dev)):
-        raise AssertionError("K3 changed the factor of an identity block")
-    fin = ~torch.isnan(L)
-    check("K3 diag_chol non-positive pivot (finite part)", max_abs_err(L[fin], Lp[fin]), TOL_CHOL)
-    print("  K3 diag_chol non-positive pivot: NaN where the plain version has NaN")
-    return errs, flag
+        err = max(err, e)
+    return err
+
+
+def check_k3(dev):
+    """K3 against its plain version on the card: (30, 128, 128), (5, 128,
+    128) and (200, 128, 128) contiguous; each width of K3_WIDTHS as a view
+    of a (4, ld, ld) matrix for each row stride ld of K3_VIEWS; NaN where
+    the plain version has NaN from a non-positive pivot at h = 128 and at
+    h = 100, identity blocks exact.  Returns the largest error and the
+    (30, 128, 128) and (200, 128, 128) inputs for timing."""
+    from vargp_tpu_torch.ops.cuda.diag_chol import diag_chol, diag_chol_plain
+
+    rng = np.random.default_rng(SEED + 6)
+    cases = {f"G = {G}, contiguous": spd_blocks(rng, G, dev) for G in (30, 5, 200)}
+    for ld, off in K3_VIEWS.items():
+        big = junk_above(spd_blocks(rng, 4, dev, ld))
+        for h in K3_WIDTHS:
+            cases[f"h = {h}, row stride {ld}"] = big[:, off:off + h, off:off + h]
+    err = compare_k3(cases)
+    check_nan_pivot("K3 diag_chol", diag_chol, diag_chol_plain, 128, 5)
+    check_nan_pivot("K3 diag_chol", diag_chol, diag_chol_plain, 100, 50)
+    # the timing inputs beside the paths' blocks (main): the flagship block
+    # and G = 200 whole blocks
+    flag = {"(30, 128, 128)": cases["G = 30, contiguous"],
+            "(200, 128, 128)": cases["G = 200, contiguous"]}
+    return err, flag
 
 
 def check_k2(dev):
@@ -494,13 +569,12 @@ def check_chol_kernels(dev):
 
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     rng = np.random.default_rng(SEED + 5)
-    junk = lambda K: K + torch.triu(torch.full_like(K, 7.0), 1)
     errs = {"diag_chol_chunked": 0.0, "cholesky": 0.0, "chol_inv": 0.0}
     flag, clusters = {}, {}
     for G in (30, 200):
         K = spd_blocks(rng, G, dev)
         before = diag_chol_chunked.launches
-        L = diag_chol_chunked(junk(K))
+        L = diag_chol_chunked(junk_above(K))
         torch.cuda.synchronize()
         if diag_chol_chunked.launches != before + 1:
             raise AssertionError("K8's launch counter did not count its launch")
@@ -516,8 +590,8 @@ def check_chol_kernels(dev):
     for label, (G, S) in shapes.items():
         K = spd_blocks(rng, G, dev, S)
         b7, b6 = cholesky.launches, chol_inv.launches
-        L = cholesky(junk(K))
-        L6, X = chol_inv(junk(K))
+        L = cholesky(junk_above(K))
+        L6, X = chol_inv(junk_above(K))
         torch.cuda.synchronize()
         if (cholesky.launches, chol_inv.launches) != (b7 + 1, b6 + 1):
             raise AssertionError("K7's or K6's launch counter did not count its launch")
@@ -534,7 +608,7 @@ def check_chol_kernels(dev):
         errs["chol_inv"] = max(errs["chol_inv"], e6)
         check(f"K6 chol_inv {label}: L^-1 L - I", max_abs_err(X @ L6, torch.eye(S, device=dev)),
               TOL_CHOL)
-        if label in ("A", "B", "one panel"):
+        if label in ("A", "B", "one panel", "analysis"):
             flag[label] = K
     check_nan_pivot("K8 diag_chol_chunked", diag_chol_chunked, diag_chol_plain, 128, 5)
     for G, S, bad in ((2, 300, 150), (30, 300, 150), (200, 300, 150), (2, 1000, 700), (2, 129, 128)):
@@ -898,6 +972,42 @@ def check_training(dev):
     return out
 
 
+def time_k3(blocks: dict) -> dict:
+    """K3 at each shape of ``blocks`` (views as the paths give them): device
+    time per launch, CUDA events around back-to-back calls, cold, the bound,
+    and torch.linalg.cholesky on the same view by device time and events."""
+    from vargp_tpu_torch.ops.cuda.diag_chol import diag_chol
+
+    out = {}
+    for label, A in blocks.items():
+        G, h = A.shape[0], A.shape[-1]
+        b_ms, b_by = bound(G * h ** 3 / 3.0, 4.0 * G * (h * (h + 1) / 2 + h * h))
+        fn, lib = (lambda: diag_chol(A)), (lambda: torch.linalg.cholesky(A))
+        out[label] = {"ms": device_ms(fn, one_kernel=True), "event_ms": time_ms(fn), "cold_ms": cold_ms(fn),
+                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": device_ms(lib),
+                      "library_event_ms": time_ms(lib), "row_stride": A.stride(-2)}
+        print(f"  diag_chol (K3) at {label}: " + "  ".join(
+            f"{k} {v:.5f}" if isinstance(v, float) else f"{k} {v}" for k, v in out[label].items()))
+    return out
+
+
+def traced_step(fn, reps: int = 5):
+    """Kernel launches and device-busy ms per call of ``fn`` under
+    torch.profiler (as scripts/profile_torch_train.py counts them), after a
+    warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(kernels) / reps, sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
+
+
 def time_training(dev):
     """ms per forward, forward + backward and whole step, at A, B and C;
     and the whole step under the solve and fused routes."""
@@ -913,10 +1023,12 @@ def time_training(dev):
                 return V.loss(t["params"], t["prev"], t["prior"], t["x"], t["y"], t["noise"],
                               t["cfg"], weights=t["w"], chain_mask=t["mask"], device=dev)
 
+        launches, busy = traced_step(lambda: step(t))
         out[name] = {
             "forward_ms": time_ms(fwd, reps=reps),
             "forward_backward_ms": time_ms(lambda: elbo_grads(t), reps=reps),
             "step_ms": time_ms(lambda: step(t), reps=reps),
+            "step_launches_traced": launches, "step_device_busy_ms": busy,
         }
         for route in ("solve", "fused"):
             with route_env(route):
@@ -950,10 +1062,24 @@ def main() -> int:
     dev = torch.device("cuda")
     print("kernels against their plain versions on the card:")
     errs, flag = check_kernels(dev)
+    errs["diag_chol"], flag_k3 = check_k3(dev)
     errs["sym_gram_tri"], flag_b = check_k2(dev)
     errs["rbf_gram"], flag_c = check_k5(dev)
     errs_chol, flag_chol, clusters = check_chol_kernels(dev)
     errs.update(errs_chol)
+    # K3's timing shapes: the first diagonal block of A's (and C's) and of
+    # B's chain Gram and of the analysis's (C's chain at H = 20), as views
+    flag_k3 = {"(30, 128, 128)": flag_k3["(30, 128, 128)"],
+               "A (30, 100, 100) of (30, 300, 300)": flag_chol["A"][:, :100, :100],
+               "B (30, 125, 125) of (30, 1000, 1000)": flag_chol["B"][:, :125, :125],
+               "analysis (200, 100, 100) of (200, 300, 300)": flag_chol["analysis"][:, :100, :100],
+               "(200, 128, 128)": flag_k3["(200, 128, 128)"]}
+    # K3 against its plain version on the paths' own blocks too, at their
+    # row strides (junk above the diagonal: only the lower triangle is read)
+    errs["diag_chol"] = max(errs["diag_chol"], compare_k3({
+        f"{label}, junk above": junk_above(flag_chol[key])[:, :h, :h]
+        for label, key, h in (("A's first block", "A", 100), ("B's first block", "B", 125),
+                              ("the analysis's first block", "analysis", 100))}))
 
     forward_launches = {name: check_forward(name, dev) for name in ("A", "C")}
     solve_forward_launches = {name: check_forward(name, dev, "solve") for name in ("A", "B")}
@@ -977,7 +1103,8 @@ def main() -> int:
     analysis = check_analysis(dev)
 
     print("timings (ms per call):")
-    z, x, invs, invs2, gamma2, spd = (flag[k] for k in ("z", "x", "invs", "invs2", "gamma2", "spd"))
+    z, x, invs, invs2, gamma2 = (flag[k] for k in ("z", "x", "invs", "invs2", "gamma2"))
+    spd = flag_k3["(30, 128, 128)"]
     H, (O, S, D), B, G = invs.shape[0], z.shape, x.shape[0], spd.shape[0]
     sz = (z[None] * invs[:, None, None, :]).reshape(H * O, S, D)
     zw = (z[None] * invs2.sqrt()[:, None, None, :]).reshape(H * O, S, D)
@@ -1099,6 +1226,12 @@ def main() -> int:
         path = e.get("path", "default")
         steps = step_launches if path == "default" else route_launches.get(path, {})
         per_step = {k: v[n] for k, v in steps.items()}
+        if n in ("diag_chol", "diag_chol_chunked"):  # K3 and K8 against the library by events too
+            e["cold_ms"], lib_event_ms = cold_ms(e["fn"]), time_ms(e["library"])
+            print(f"  {n} at {tuple(spd.shape)}: cold {e['cold_ms']:.5f}; against torch.linalg.cholesky "
+                  f"(device {lib_ms:.5f}, events {lib_event_ms:.5f}): "
+                  f"{'faster' if ms < lib_ms else 'SLOWER'} by device time, "
+                  f"{'faster' if event_ms < lib_event_ms else 'SLOWER'} by events")
         if "shape" in e:  # K7 and K6 at A, then at B: one JSON entry, B's numbers nested
             times = {"ms": ms, "event_ms": event_ms, "cold_ms": cold_ms(e["fn"]),
                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -1123,6 +1256,10 @@ def main() -> int:
         })
         if "shape" in e:  # K7 and K6: A's cold time and cluster size beside the warm numbers
             kernels[-1].update(cold_ms=times["cold_ms"], cluster=times["cluster"])
+        if "cold_ms" in e:  # K3 and K8
+            kernels[-1].update(cold_ms=e["cold_ms"], library_event_ms=lib_event_ms)
+        if n == "diag_chol":  # K3 at the shapes the paths give it
+            kernels[-1]["at_shapes"] = time_k3(flag_k3)
     # K6 beside the route it would replace, K7 beside torch.linalg.cholesky
     for cfg_name in ("A", "B"):
         K = flag_chol[cfg_name]
@@ -1138,9 +1275,14 @@ def main() -> int:
     # one panel: K7's and K6's time is the diagonal step alone, beside K8's
     K = flag_chol["one panel"]
     one = {n: device_ms(f, one_kernel=True) for n, f in (
-        ("K7", lambda: cholesky(K)), ("K6", lambda: chol_inv(K)), ("K8", lambda: diag_chol_chunked(K)))}
+        ("K7", lambda: cholesky(K)), ("K6", lambda: chol_inv(K)), ("K8", lambda: diag_chol_chunked(K)),
+        ("K3", lambda: diag_chol(K)))}
     print(f"  one panel {tuple(K.shape)}, device time: " + "  ".join(f"{n} {v:.4f}" for n, v in one.items())
-          + f"; CUDA events: K7 {time_ms(lambda: cholesky(K)):.4f}  K6 {time_ms(lambda: chol_inv(K)):.4f}")
+          + f"; CUDA events: K7 {time_ms(lambda: cholesky(K)):.4f}  K6 {time_ms(lambda: chol_inv(K)):.4f}  "
+          f"K8 {time_ms(lambda: diag_chol_chunked(K)):.4f}  K3 {time_ms(lambda: diag_chol(K)):.4f}; "
+          f"CUDA events, the host queued ahead: K7 {queued_ms(lambda: cholesky(K)):.4f}  "
+          f"K6 {queued_ms(lambda: chol_inv(K)):.4f}  K8 {queued_ms(lambda: diag_chol_chunked(K)):.4f}  "
+          f"K3 {queued_ms(lambda: diag_chol(K)):.4f}")
     print(f"  sym_gram (K1) at B's shape {tuple(szb.shape)}: "
           f"{time_ms(lambda: sym_gram(zb, invsb, g2b)):.4f}")
 

@@ -1,9 +1,10 @@
 """The plain versions of K7 (batched Cholesky), K6 (fused Cholesky and
-triangular inverse) and K8 (chunked 128-block Cholesky), and the backward
-rules around K7 and K6, against the JAX package on the CPU: K7 and K6
-against their Pallas kernels run in interpret mode, K8 against
-``jnp.linalg.cholesky`` (the JAX test's own reference: the Pallas K8 is
-slow in interpret mode).
+triangular inverse), K3 (diagonal-block Cholesky) and K8 (chunked
+128-block Cholesky), and the backward rules around K7 and K6, against the
+JAX package on the CPU: K7, K6 and K3 against their Pallas kernels run in
+interpret mode, K8 against ``jnp.linalg.cholesky`` (the JAX test's own
+reference: the Pallas K8 is slow in interpret mode).  K3's wrapper takes
+views; its checks of shape and strides run on every device.
 
 Tolerances: every side factors in f32 on the CPU; the kernels and the
 plain versions differ from the interpreted TPU kernels by the column
@@ -18,8 +19,16 @@ symmetric parts as tests/test_pallas.py does).
 The kernels compute their products in 3xTF32 on the tensor cores; a test
 here runs the plain panel algorithm through an emulation of that
 arithmetic (the helpers below, not in the package) and holds the factor
-to the smoke test's tolerance, 1e-4 absolute, of a float64 factor.
+to the smoke test's tolerance, 1e-4 absolute, of a float64 factor; another
+does the same for K3's 32-column chunks.
+
+K3 reads the lower triangle, the Pallas K3 rows as columns (the upper
+triangle): on an input that is not bitwise symmetric they differ by the
+asymmetry (f32 rounding of a product, ~1e-7 of the entries) carried
+through a well-conditioned factor, within ATOL_L.
 """
+
+import functools
 
 import numpy as np
 import jax
@@ -29,12 +38,15 @@ import torch
 
 from vargp_tpu import gpmath as jgm
 from vargp_tpu.ops.pallas.chol import cholesky_pallas
+from vargp_tpu.gpmath.linalg import pad_identity_tail as jpad_identity_tail
 from vargp_tpu.ops.pallas.chol_inv import _chol_inv_call
+from vargp_tpu.ops.pallas.chol_panel import diag_chol_pallas_t
 from vargp_tpu_torch.ops import dispatch as tdispatch
 from vargp_tpu_torch.ops.cuda.chol import (blocked_plain, cholesky, cholesky_plain, cluster_size,
                                             tri_inv_plain)
 from vargp_tpu_torch.ops.cuda.chol_inv import chol_inv, chol_inv_plain
-from vargp_tpu_torch.ops.cuda.diag_chol import diag_chol_chunked, diag_chol_plain
+from vargp_tpu_torch.gpmath import linalg as tlinalg
+from vargp_tpu_torch.ops.cuda.diag_chol import diag_chol, diag_chol_chunked, diag_chol_plain
 
 f32 = np.float32
 # one intra-op thread per test process, as tests/_torch_cases.py sets it
@@ -249,3 +261,118 @@ def test_3xtf32_products_keep_the_factor_at_f32_accuracy():
 def test_cluster_size_on_132_sms(G, C):
     """One cluster per matrix: the largest power of two <= min(8, 132 // G)."""
     assert cluster_size(G, 132) == C
+
+
+# --------------------------------------------------------------------------
+# K3: the diagonal-block Cholesky, read in place
+# --------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=1)
+def _k3_cases():
+    """K3's inputs against the Pallas kernel, each with what the JAX package
+    makes of it, from one interpret-mode call (~8 s on a CPU):
+
+    schur: the Schur complement of ``chol_and_inv_blocked``'s second block
+      at S = 256, its upper triangle's products summed in the reverse
+      order (as a GPU product's tiles may sum them): not bitwise symmetric;
+    h100, h125: ragged blocks as strided views of wider matrices (A's and
+      B's block widths), against the JAX caller's identity pad, the kernel
+      and the slice (vargp_tpu/gpmath/linalg.py:152-156)."""
+    rng = np.random.default_rng(21)
+    K = _t(_spd(rng, (1,), 256))
+    Dinv = tlinalg._tri_inv_newton(tlinalg._diag_chol(K[..., :128, :128]))
+    Lcol = tlinalg.mmt(K[..., 128:, :128], Dinv)
+    lower, upper = tlinalg.mmt(Lcol, Lcol), tlinalg.mmt(Lcol.flip(-1), Lcol.flip(-1))
+    schur = K[..., 128:, 128:] - (torch.tril(lower) + torch.triu(upper, 1))
+    v100 = _t(_spd(rng, (2,), 300))[:, 50:150, 50:150]
+    v125 = _t(_spd(rng, (2,), 250))[:, 125:, 125:]
+    jin = [schur.numpy()] + [np.asarray(jpad_identity_tail(jnp.asarray(v.numpy()), 128))
+                             for v in (v100, v125)]
+    jout = np.asarray(diag_chol_pallas_t(jnp.asarray(np.concatenate(jin)), interpret=True))
+    return {"schur": (schur, jout[:1]), "h100": (v100, jout[1:3, :100, :100]),
+            "h125": (v125, jout[3:, :125, :125])}
+
+
+@pytest.mark.parametrize("case", ["schur", "h100", "h125"])
+def test_k3_matches_pallas_interpret(case):
+    A, want = _k3_cases()[case]
+    if case == "schur":
+        asym = float((A - A.transpose(-1, -2)).abs().max())
+        print(f"Schur complement: max |A - A^T| = {asym:.3e}")
+        assert asym > 0.0
+    else:
+        assert not A.is_contiguous()
+    got = diag_chol(A).numpy()  # CPU tensor: the plain version
+    np.testing.assert_allclose(got, want, atol=ATOL_L)
+    assert np.all(np.triu(got, 1) == 0.0)
+
+
+def _chunked_factor(K, mm):
+    """K3's arithmetic on the CPU: per 32-column chunk the 32 x 32 block's
+    column loop, the rows below solved against it, then the trailing
+    update L21 L21^T through ``mm``."""
+    A, n = K.clone(), K.shape[-1]
+    L = torch.zeros_like(A)
+    for c0 in range(0, n, 32):
+        t0 = c0 + 32
+        L11 = diag_chol_plain(A[..., c0:t0, c0:t0])
+        L[..., c0:t0, c0:t0] = L11
+        if t0 == n:
+            break
+        X = torch.linalg.solve_triangular(L11, A[..., t0:, c0:t0].transpose(-1, -2),
+                                          upper=False).transpose(-1, -2)
+        L[..., t0:, c0:t0] = X
+        A[..., t0:, t0:] = A[..., t0:, t0:] - mm(X, X.transpose(-1, -2))
+    return L
+
+
+def test_k3_chunked_3xtf32_arithmetic_keeps_f32_accuracy():
+    """K3's 32-column chunks with the rank-32 updates in 3xTF32, at
+    (2, 128, 128) made as chip_smoke.py's spd_blocks: within TOL_CHOL of the
+    float64 factor and no further from it than twice the same chunks with
+    f32 products; one TF32 product per update printed for contrast."""
+    K = _t(_spd(np.random.default_rng(12), (2,), 128))
+    L64 = torch.linalg.cholesky(K.double())
+    err = lambda L: float((L.double() - L64).abs().max())
+    e32, e3, e1 = (err(_chunked_factor(K, mm)) for mm in (torch.matmul, _mm3, _mm1))
+    print(f"max |L - L_f64| at (2, 128, 128): f32 products {e32:.3e}, 3xTF32 {e3:.3e}, "
+          f"1xTF32 {e1:.3e}; the plain column loop {err(diag_chol_plain(K)):.3e}")
+    assert e3 <= TOL_CHOL and e3 <= 2 * e32
+
+
+def test_k3_wrapper_checks_shapes_and_strides():
+    """Bad blocks raise on every device; a strided view whose batch
+    dimensions flatten to one stride gives exactly what its contiguous
+    copy gives."""
+    x = _t(_spd(np.random.default_rng(13), (4, 6), 16))
+    for bad, msg in ((torch.eye(129)[None], "at most 128"), (x[..., :8, :9], "square"),
+                     (x[0, :2].transpose(-1, -2), "last stride"), (x[:, :3], "flatten"),
+                     (x.transpose(0, 1), "flatten")):
+        with pytest.raises(ValueError, match=msg):
+            diag_chol(bad)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        diag_chol(x.to("meta"))
+    for view in (x[:, :, 2:10, 2:10], x[2, 1:4, 3:, 3:], x[:, 2], x[1, 1].expand(3, 16, 16),
+                 x[1:2, 3:4, :5, :5]):
+        np.testing.assert_array_equal(diag_chol(view).numpy(), diag_chol(view.contiguous()).numpy())
+
+
+@pytest.mark.parametrize("h", [1, 33, 100, 125])
+def test_k3_cpu_block_equals_padded_factor_bitwise(h):
+    """On the CPU K3 factors the h x h view itself: bitwise the leading
+    block of the factor of the view padded with an identity tail to 128
+    (the kernel's blockdiag(A, I)), whose tail comes back exact."""
+    A = _t(_spd(np.random.default_rng(15), (2,), 300))[:, 40:40 + h, 40:40 + h]
+    padded = diag_chol_plain(tlinalg.pad_identity_tail(A, 128))
+    np.testing.assert_array_equal(diag_chol(A).numpy(), padded[:, :h, :h].numpy())
+    tail = np.broadcast_to(np.eye(128 - h, dtype=np.float32), (2, 128 - h, 128 - h))
+    np.testing.assert_array_equal(padded[:, h:, h:].numpy(), tail)
+    assert not padded[:, h:, :h].any()
+
+
+def test_k3_k8_launch_counters_stay_zero_on_the_cpu():
+    K = _t(_spd(np.random.default_rng(14), (3,), 300))
+    diag_chol(K[:, :100, :100]), diag_chol_chunked(K[:, :128, :128].contiguous())
+    tdispatch.chol_and_inv(K)
+    assert diag_chol.launches == diag_chol_chunked.launches == 0

@@ -130,6 +130,27 @@ def test_chol_and_inv_matches_jax(S):
     np.testing.assert_allclose((Li @ L).numpy(), eye, atol=5e-5)
 
 
+@pytest.mark.parametrize("S,d", [(300, 100), (250, 125)])
+def test_blocked_factorisation_hands_k3_views(monkeypatch, S, d):
+    """``chol_and_inv_blocked`` gives K3 each diagonal block as the view it
+    is (A's 100-wide blocks, B's 125-wide ones), with no pad, copy or
+    slice around the call; the result still matches the JAX package's."""
+    seen = []
+
+    def spy(A):
+        seen.append((tuple(A.shape[-2:]), A.is_contiguous(), A.stride(-2)))
+        return diag_chol(A)
+
+    monkeypatch.setattr(tlinalg, "diag_chol", spy)
+    K = _spd(np.random.default_rng(S), (2,), S)
+    L, Li = tlinalg.chol_and_inv_blocked(_t(K), d)
+    T = S // d  # the last trailing matrix is the block itself
+    assert seen == [((d, d), t == T - 1, S - t * d) for t in range(T)]
+    jL, jLi = jdispatch.chol_and_inv(jnp.asarray(K))
+    np.testing.assert_allclose(L.numpy(), np.asarray(jL), atol=5e-5)
+    np.testing.assert_allclose(Li.numpy(), np.asarray(jLi), atol=5e-4)
+
+
 def test_add_jitter_pad_and_tri_inv_match_jax():
     rng = np.random.default_rng(1)
     K = _spd(rng, (2,), 200)

@@ -1,31 +1,31 @@
-// Device routines shared by the Cholesky kernels K8 (diag_chol_chunked.cu),
-// K7 (chol.cu) and K6 (chol_inv.cu).  Every routine runs in one thread
-// block of kThreads threads on f32 tiles in shared memory.
+// Device routines shared by the Cholesky kernels K3 (diag_chol.cu), K8
+// (diag_chol_chunked.cu), K7 (chol.cu) and K6 (chol_inv.cu).  Every routine
+// runs in one thread block of kThreads threads on f32 tiles in shared
+// memory.
 //
-//   chol_block:   K8's factor of a 128 x 128 block in place (row stride
-//                 kLd = 129), in four 32-column chunks: one warp factors
-//                 the chunk's panel with shuffles, then the whole block
-//                 applies the chunk's rank-32 update with FMAs.  This is
-//                 the chunked design of the TPU's diag_chol_pallas
-//                 (chol_panel.py:311).
-//   diag_step:    K7's and K6's diagonal step: the factor L of a 128 x 128
-//                 block AND its inverse (row stride kLdD = 132).  Per
-//                 32-column chunk, warp 0 factors the 32 x 32 block in its
-//                 registers (a lane owns a row; pivots and the pivot
-//                 column arrive by __shfl_sync, no shared-memory round
-//                 trip per column), one thread per row below solves that
-//                 row against it in registers, and the rank-32 update of
-//                 the trailing lower triangle runs as 3xTF32 tensor-core
-//                 tiles on all 8 warps.  The inverse is blockwise: four
-//                 32 x 32 chunk inverses at once (one warp each, a lane
-//                 owns a column), then the six off-diagonal 32-blocks in
-//                 three rounds of products, nearest the diagonal first,
-//                 on 16 x 16 tiles over all warps.  No step is longer than
-//                 32 dependent column steps; the 128-deep one-thread-per-
-//                 column substitution it replaces is gone.  With its load
-//                 and write-out it takes ~30 µs on an H100 (the D phase of
-//                 ops/cuda/chol_probe.py), most of it the four chunks'
-//                 column steps.
+//   diag_factor:  the lower factor L of a 128 x 128 block in place (row
+//                 stride kLdD = 132).  Per 32-column chunk, warp 0 factors
+//                 the 32 x 32 block in its registers (a lane owns a row;
+//                 pivots and the pivot column arrive by __shfl_sync, no
+//                 shared-memory round trip per column, the next pivot
+//                 shuffled ahead of the column's other shuffles), one
+//                 thread per row below solves that row against it in
+//                 registers (left-looking: L11's rows read as float4),
+//                 and the rank-32 update of the trailing lower triangle
+//                 runs as 3xTF32 tensor-core tiles, with a look-ahead: the
+//                 next chunk's columns are updated first, on all 8 warps,
+//                 and the next chunk's factor runs beside the rest.
+//   diag_chol_block: K3's and K8's whole work on one matrix: the h x h
+//                 block (h <= 128) read in place, its lower triangle only,
+//                 with the identity outside it; diag_factor; the h x h
+//                 factor written out.
+//   diag_step:    K7's and K6's diagonal step: diag_factor, then the
+//                 block's inverse (row stride kLdD).  The inverse is
+//                 blockwise: four 32 x 32 chunk inverses at once (one warp
+//                 each, a lane owns a column), then the six off-diagonal
+//                 32-blocks in three rounds of products, nearest the
+//                 diagonal first, on 16 x 16 tiles over all warps.  No step
+//                 is longer than 32 dependent column steps.
 //   warp_mma:     a warp's (16 MT) x (8 NT) output tile of A B^T on the
 //                 tensor cores in 3xTF32: each f32 operand splits into
 //                 big = cvt.rna.tf32(x) and small = cvt.rna.tf32(x - big),
@@ -71,59 +71,8 @@
 namespace chol_tile {
 
 constexpr int kN = 128;       // diagonal block and panel width
-constexpr int kLd = kN + 1;   // K8's shared-memory row stride
 constexpr int kThreads = 256; // 8 warps
-constexpr int kBlockFloats = kN * kLd;
-
-// Lower Cholesky factor of the SPD block in sD (128 x 128, stride kLd) in
-// place.  Reads and writes the lower triangle only; the caller zeroes the
-// strict upper triangle.
-__device__ inline void chol_block(float* sD) {
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  for (int c0 = 0; c0 < kN; c0 += 32) {
-    if (warp == 0) {
-      for (int j = 0; j < 32; ++j) {
-        const int jj = c0 + j;
-        __syncwarp();  // the previous step's updates are in place
-        const float piv = sD[jj * kLd + jj];
-        __syncwarp();
-        const float rs = rsqrtf(piv);
-        for (int r = jj + lane; r < kN; r += 32) sD[r * kLd + jj] *= rs;
-        __syncwarp();
-        // rank-1 update of the chunk's later columns; l[c] for the chunk's
-        // own rows comes from lane c - c0 by shuffle
-        const float lown = (c0 + lane >= jj) ? sD[(c0 + lane) * kLd + jj] : 0.f;
-        float lr[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int r = c0 + lane + 32 * q;
-          lr[q] = (r > jj && r < kN) ? sD[r * kLd + jj] : 0.f;
-        }
-        for (int c = jj + 1; c < c0 + 32; ++c) {
-          const float lc = __shfl_sync(0xffffffffu, lown, c - c0);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int r = c0 + lane + 32 * q;
-            if (r >= c && r < kN) sD[r * kLd + c] = fmaf(-lr[q], lc, sD[r * kLd + c]);
-          }
-        }
-      }
-    }
-    __syncthreads();
-    // rank-32 update of the trailing lower triangle
-    const int t0 = c0 + 32, n = kN - t0;
-    for (int idx = tid; idx < n * n; idx += kThreads) {
-      const int r = t0 + idx / n, c = t0 + idx % n;
-      if (c > r) continue;
-      float acc = sD[r * kLd + c];
-#pragma unroll 8
-      for (int j = c0; j < t0; ++j) acc = fmaf(-sD[r * kLd + j], sD[c * kLd + j], acc);
-      sD[r * kLd + c] = acc;
-    }
-    __syncthreads();
-  }
-}
+constexpr unsigned kFull = 0xffffffffu;
 
 // ---------------------------------------------------------------------------
 // 3xTF32 tensor-core tiles
@@ -257,6 +206,239 @@ __device__ __forceinline__ void stage(float* dst, int ldd, const float* g, int l
 }
 
 // ---------------------------------------------------------------------------
+// the diagonal factor
+// ---------------------------------------------------------------------------
+
+// A probe that records nothing.  ops/cuda/chol_probe.py passes one that
+// reads %globaltimer at each event: probe(e) is called by every thread
+// that passes event e's point.
+struct NoProbe {
+  __device__ __forceinline__ void operator()(int) const {}
+};
+// Events: kEvLoaded, then per 32-column chunk k the ends of its (a), (b),
+// (c) on the next chunk's columns, of the rest of (c) and of the join
+// (kEvChunk + 5 k + phase), then kEvStored.
+enum { kEvLoaded = 0, kEvChunk = 1, kEvA = 0, kEvB, kEvC, kEvRest, kEvJoin, kEvStored = 21 };
+constexpr int kEvents = 22;
+__host__ __device__ constexpr int ev(int k, int phase) { return kEvChunk + 5 * k + phase; }
+
+// (a) Warp 0: the 32 x 32 diagonal block of the chunk at c0 in place; lane
+// r holds row c0 + r.  Each column step's pivot comes by shuffle from its
+// lane; the next pivot's one FMA and shuffle go ahead of the column's
+// other shuffles (the same FMA that the column loop gives that lane).
+// rinv[c0 + r] = 1 / L[c0 + r][c0 + r].
+__device__ __forceinline__ void factor_chunk(float* sD, float* rinv, int c0) {
+  const int lane = threadIdx.x % 32;
+  float a[32];
+  float4* row = reinterpret_cast<float4*>(sD + (c0 + lane) * kLdD + c0);
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const float4 v = row[q];
+    a[4 * q] = v.x, a[4 * q + 1] = v.y, a[4 * q + 2] = v.z, a[4 * q + 3] = v.w;
+  }
+  float rs = rsqrtf(__shfl_sync(kFull, a[0], 0));
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    a[j] = (lane >= j) ? a[j] * rs : 0.f;
+    if (j + 1 < 32) rs = rsqrtf(__shfl_sync(kFull, fmaf(-a[j], a[j], a[j + 1]), j + 1));
+#pragma unroll
+    for (int c = j + 1; c < 32; ++c) {
+      const float lc = __shfl_sync(kFull, a[j], c);  // L[c][j]
+      a[c] = fmaf(-a[j], lc, a[c]);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 8; ++q) row[q] = make_float4(a[4 * q], a[4 * q + 1], a[4 * q + 2], a[4 * q + 3]);
+  __syncwarp();
+  rinv[c0 + lane] = 1.f / sD[(c0 + lane) * kLdD + c0 + lane];
+}
+
+// (b) One thread: row r's 32 entries of the chunk at c0, x L11^T = a, in
+// registers.  Left-looking: x[c] = (a[c] - sum_{j<c} x[j] L11[c][j]) /
+// L11[c][c], the sum in ascending j (the same FMAs, in the same order, as
+// the right-looking substitution), L11's row c read as float4.
+__device__ __forceinline__ void solve_row(float* sD, const float* rinv, int c0, int r) {
+  float a[32];
+  float4* row = reinterpret_cast<float4*>(sD + r * kLdD + c0);
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const float4 v = row[q];
+    a[4 * q] = v.x, a[4 * q + 1] = v.y, a[4 * q + 2] = v.z, a[4 * q + 3] = v.w;
+  }
+  const float* L11 = sD + c0 * kLdD + c0;
+#pragma unroll
+  for (int c = 0; c < 32; ++c) {
+    float s = a[c];
+#pragma unroll
+    for (int j = 0; j < c; j += 4) {
+      const float4 l = *reinterpret_cast<const float4*>(L11 + c * kLdD + j);
+      s = fmaf(-a[j], l.x, s);
+      if (j + 1 < c) s = fmaf(-a[j + 1], l.y, s);
+      if (j + 2 < c) s = fmaf(-a[j + 2], l.z, s);
+      if (j + 3 < c) s = fmaf(-a[j + 3], l.w, s);
+    }
+    a[c] = s * rinv[c0 + c];
+  }
+#pragma unroll
+  for (int q = 0; q < 8; ++q) row[q] = make_float4(a[4 * q], a[4 * q + 1], a[4 * q + 2], a[4 * q + 3]);
+}
+
+// (c) One warp: the 16 x 16 tile (ti, tj) of the trailing block at t0 less
+// the chunk's rank-32 product L21 L21^T, on its entries in the lower
+// triangle.
+__device__ __forceinline__ void update_tile(float* sD, int c0, int t0, int ti, int tj) {
+  float* out = sD + (t0 + 16 * ti) * kLdD + t0 + 16 * tj;
+  warp_mma16<false>(sD + (t0 + 16 * ti) * kLdD + c0, kLdD, sD + (t0 + 16 * tj) * kLdD + c0, kLdD,
+                    32, [&](int r, int c, float v) {
+                      if (16 * tj + c <= 16 * ti + r) out[r * kLdD + c] -= v;
+                    });
+}
+
+// sD: a 128 x 128 block, stride kLdD, its lower triangle SPD (a ragged
+// block is padded with the identity), strict upper triangle zero.  On
+// return sD holds L (strict upper triangle zero) and rinv[c] = 1 / L[c][c].
+// Ends with a block barrier.
+//
+// The look-ahead: chunk k's update is applied to chunk k + 1's 32 columns
+// first; then warp 0 factors chunk k + 1 while warps 1-3 and 5-7 update
+// the rest of the trailing triangle (warp 4 would share warp 0's
+// scheduler), and one barrier joins them.
+template <typename Probe = NoProbe>
+__device__ inline void diag_factor(float* sD, float* rinv, Probe probe = {}) {
+  const int tid = threadIdx.x, warp = tid / 32;
+  // Chunk k's pass: the rows below chunk k - 1 solved and its update
+  // applied, then chunk k's factor.  One call site of factor_chunk keeps
+  // the unrolled column steps in the instruction cache once.
+  for (int c0 = 0; c0 < kN; c0 += 32) {
+    const int k = c0 / 32, p0 = c0 - 32, n = kN - c0, nb = n / 16;
+    if (c0 > 0) {
+      if (tid < n) solve_row(sD, rinv, p0, c0 + tid);
+      __syncthreads();
+      probe(ev(k - 1, kEvB));
+      // this chunk's columns only: tiles (0, 0), then (ti, 0) and (ti, 1)
+      for (int u = warp; u < 2 * nb - 1; u += kThreads / 32) {
+        const int v = u == 0 ? 0 : u + 1;
+        update_tile(sD, p0, c0, v / 2, v % 2);
+      }
+      __syncthreads();
+      probe(ev(k - 1, kEvC));
+    }
+    if (warp == 0) {
+      factor_chunk(sD, rinv, c0);
+      if (c0 > 0) probe(ev(k, kEvA));
+    } else if (c0 > 0 && warp != 4) {  // warp 4 would share warp 0's scheduler
+      for (int u = warp - 1 - (warp > 4); u < (nb - 2) * (nb - 1) / 2; u += 6) {
+        int ti = 0, tj = u;
+        while (tj > ti) tj -= ++ti;
+        update_tile(sD, p0, c0, ti + 2, tj + 2);
+      }
+      probe(ev(k - 1, kEvRest));
+    }
+    __syncthreads();
+    probe(c0 > 0 ? ev(k - 1, kEvJoin) : ev(k, kEvA));
+  }
+}
+
+// s (128 x 128, stride kLdD) = the lower triangle of the h x h block at g
+// (row stride ldg), read through L2; zero above the diagonal; outside
+// h x h the identity (diag = 1) or zero (diag = 0).  Warp w takes rows w,
+// w + 8, ...; lane l columns 4 l .. 4 l + 3.  When every row of g starts
+// 16-byte aligned and h is a multiple of 4 (vec), each 4-column chunk that
+// reaches the lower triangle is one 16-byte cp.async (the entries above
+// the diagonal that it brings are zeroed after the wait); else the loads
+// of four rows are in flight before their stores.  Ends with a block
+// barrier.
+__device__ inline void load_square(float* s, const float* g, int ldg, int h, float diag,
+                                   bool vec) {
+  const int warp = threadIdx.x / 32, c = 4 * (threadIdx.x % 32);
+  auto outside = [&](int r) {  // the chunk's entries where nothing is read
+    return make_float4(r == c ? diag : 0.f, r == c + 1 ? diag : 0.f, r == c + 2 ? diag : 0.f,
+                       r == c + 3 ? diag : 0.f);
+  };
+  if (vec) {
+#pragma unroll 4
+    for (int r = warp; r < kN; r += kThreads / 32) {
+      float* d = s + r * kLdD + c;
+      if (r < h && c <= r)
+        cp_async16(d, g + (size_t)r * ldg + c, true);
+      else
+        *reinterpret_cast<float4*>(d) = outside(r);
+    }
+    cp_async_commit();  // wait_group counts committed groups only
+    cp_async_wait<0>();
+    for (int r = warp; r < h; r += kThreads / 32)
+      for (int e = 1; e < 4; ++e)
+        if (c <= r && r < c + e) s[r * kLdD + c + e] = 0.f;
+  } else {
+    for (int r0 = warp; r0 < kN; r0 += 4 * kThreads / 32) {
+      float4 v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = r0 + i * kThreads / 32;
+        const float* p = g + (size_t)r * ldg + c;
+        v[i] = outside(r);
+        if (r < h) {
+          if (c <= r) v[i].x = __ldcg(p);
+          if (c + 1 <= r) v[i].y = __ldcg(p + 1);
+          if (c + 2 <= r) v[i].z = __ldcg(p + 2);
+          if (c + 3 <= r) v[i].w = __ldcg(p + 3);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        *reinterpret_cast<float4*>(s + (r0 + i * kThreads / 32) * kLdD + c) = v[i];
+    }
+  }
+  __syncthreads();
+}
+
+// out (h x h, contiguous) = the leading h x h block of s (stride kLdD)
+// with its strict upper triangle 0: warp w writes rows w, w + 8, ...; as
+// float4 when h is a multiple of 4 (out 16-byte aligned).
+__device__ inline void store_lower(float* out, const float* s, int h) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (h % 4 == 0) {
+    const int c = 4 * lane;
+    if (c >= h) return;
+    for (int r = warp; r < h; r += kThreads / 32) {
+      float4 v = *reinterpret_cast<const float4*>(s + r * kLdD + c);
+      if (c > r) v.x = 0.f;
+      if (c + 1 > r) v.y = 0.f;
+      if (c + 2 > r) v.z = 0.f;
+      if (c + 3 > r) v.w = 0.f;
+      *reinterpret_cast<float4*>(out + r * h + c) = v;
+    }
+  } else {
+    for (int r = warp; r < h; r += kThreads / 32)
+      for (int c = lane; c < h; c += 32) out[r * h + c] = c <= r ? s[r * kLdD + c] : 0.f;
+  }
+}
+
+// Shared memory of diag_chol_block (floats): the block, then rinv; 68,096
+// bytes, so three blocks fit on an SM.  Registers allow two
+// (__launch_bounds__(kThreads, kDiagMinBlocks): at most 128 a thread; at
+// three, 80 a thread, the factor spills).
+constexpr int kDiagSmemFloats = kDFloats + kN;
+constexpr int kDiagMinBlocks = 2;
+
+// K3's and K8's work on one matrix: the lower Cholesky factor of the h x h
+// block at g (h <= 128, row stride ldg, only its lower triangle read)
+// into out (h x h, contiguous, strict upper triangle 0).  The identity
+// outside h x h makes the factor blockdiag(L, I), whose leading block is
+// the answer.  smem holds kDiagSmemFloats.
+template <typename Probe = NoProbe>
+__device__ inline void diag_chol_block(const float* g, int ldg, int h, bool vec, float* out,
+                                       float* smem, Probe probe = {}) {
+  float* sD = smem;
+  float* rinv = smem + kDFloats;
+  load_square(sD, g, ldg, h, 1.f, vec);
+  probe(kEvLoaded);
+  diag_factor(sD, rinv, probe);
+  store_lower(out, sD, h);
+  probe(kEvStored);
+}
+
+// ---------------------------------------------------------------------------
 // the diagonal step
 // ---------------------------------------------------------------------------
 
@@ -281,75 +463,13 @@ __device__ inline void invert_chunk(const float* sD, float* sX, const float* rin
   for (int i = 0; i < 32; ++i) sX[(c0 + i) * kLdD + c0 + lane] = x[i];
 }
 
-// sD: a 128 x 128 block, stride kLdD, its lower triangle SPD (a ragged
-// block is padded with the identity), strict upper triangle zero.  On
-// return sD holds L and sX (stride kLdD) holds L^-1, both with a zero
-// strict upper triangle.  scratch: 3 x 32 x kLdN + 128 floats.
+// sD as diag_factor takes it.  On return sD holds L and sX (stride kLdD)
+// holds L^-1, both with a zero strict upper triangle.  scratch: 3 x 32 x
+// kLdN + 128 floats.
 __device__ inline void diag_step(float* sD, float* sX, float* scratch) {
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x, warp = tid / 32;
   float* rinv = scratch + 3 * 32 * kLdN;  // 1 / L[c][c]
-  for (int c0 = 0; c0 < kN; c0 += 32) {
-    // (a) warp 0 factors the chunk's 32 x 32 block; lane r holds row c0 + r
-    if (warp == 0) {
-      float a[32];
-      float4* row = reinterpret_cast<float4*>(sD + (c0 + lane) * kLdD + c0);
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const float4 v = row[q];
-        a[4 * q] = v.x, a[4 * q + 1] = v.y, a[4 * q + 2] = v.z, a[4 * q + 3] = v.w;
-      }
-#pragma unroll
-      for (int j = 0; j < 32; ++j) {
-        const float rs = rsqrtf(__shfl_sync(0xffffffffu, a[j], j));  // the pivot, from lane j
-        a[j] = (lane >= j) ? a[j] * rs : 0.f;
-#pragma unroll
-        for (int c = j + 1; c < 32; ++c) {
-          const float lc = __shfl_sync(0xffffffffu, a[j], c);  // L[c][j]
-          a[c] = fmaf(-a[j], lc, a[c]);
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < 8; ++q) row[q] = make_float4(a[4 * q], a[4 * q + 1], a[4 * q + 2], a[4 * q + 3]);
-      __syncwarp();
-      rinv[c0 + lane] = 1.f / sD[(c0 + lane) * kLdD + c0 + lane];
-    }
-    __syncthreads();
-    const int t0 = c0 + 32, n = kN - t0;
-    if (n == 0) break;
-    // (b) the rows below: x L11^T = a, one thread per row
-    if (tid < n) {
-      float a[32];
-      float4* row = reinterpret_cast<float4*>(sD + (t0 + tid) * kLdD + c0);
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const float4 v = row[q];
-        a[4 * q] = v.x, a[4 * q + 1] = v.y, a[4 * q + 2] = v.z, a[4 * q + 3] = v.w;
-      }
-      const float* L11 = sD + c0 * kLdD + c0;
-#pragma unroll
-      for (int j = 0; j < 32; ++j) {
-        a[j] *= rinv[c0 + j];
-#pragma unroll
-        for (int c = j + 1; c < 32; ++c) a[c] = fmaf(-a[j], L11[c * kLdD + j], a[c]);
-      }
-#pragma unroll
-      for (int q = 0; q < 8; ++q) row[q] = make_float4(a[4 * q], a[4 * q + 1], a[4 * q + 2], a[4 * q + 3]);
-    }
-    __syncthreads();
-    // (c) rank-32 update of the trailing lower triangle on the 16 x 16
-    // tiles that reach it, round-robin over the warps
-    const int nb = n / 16;
-    for (int u = warp; u < nb * (nb + 1) / 2; u += kThreads / 32) {
-      int ti = 0, tj = u;
-      while (tj > ti) tj -= ++ti;
-      float* out = sD + (t0 + 16 * ti) * kLdD + t0 + 16 * tj;
-      warp_mma16<false>(sD + (t0 + 16 * ti) * kLdD + c0, kLdD, sD + (t0 + 16 * tj) * kLdD + c0,
-                        kLdD, 32, [&](int r, int c, float v) {
-                          if (16 * tj + c <= 16 * ti + r) out[r * kLdD + c] -= v;
-                        });
-    }
-    __syncthreads();
-  }
+  diag_factor(sD, rinv);
 
   // the inverse: the chunks' 32 x 32 inverses, one warp each (run during
   // the factor's chunks, they measured slower: they compete with warp 0),
@@ -384,26 +504,6 @@ __device__ inline void diag_step(float* sD, float* sX, float* scratch) {
     }
     __syncthreads();
   }
-}
-
-// s (128 x 128, stride kLdD) = the h x h block at g (row stride ldg), read
-// through L2, its strict upper triangle 0; outside h x h the identity
-// (diag = 1) or zero (diag = 0).  Ends with a block barrier.
-__device__ inline void load_square(float* s, const float* g, int ldg, int h, float diag,
-                                   bool vec) {
-  for (int idx = threadIdx.x; idx < kN * kN; idx += kThreads) {
-    const int r = idx / kN, c = idx % kN;
-    if (r >= h || c >= h) s[r * kLdD + c] = (r == c) ? diag : 0.f;
-  }
-  stage(s, kLdD, g, ldg, h, h, h, vec);
-  cp_async_commit();  // wait_group counts committed groups only
-  cp_async_wait<0>();
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < h * h; idx += kThreads) {
-    const int r = idx / h, c = idx % h;
-    if (c > r) s[r * kLdD + c] = 0.f;
-  }
-  __syncthreads();
 }
 
 // ---------------------------------------------------------------------------

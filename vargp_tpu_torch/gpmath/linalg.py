@@ -105,14 +105,12 @@ def pad_identity_tail(A: torch.Tensor, Sp: int) -> torch.Tensor:
 def _diag_chol(A: torch.Tensor) -> torch.Tensor:
     """Batched Cholesky of (..., S, S) diagonal blocks.
 
-    S <= 128 goes through K3 (identity-padded to 128 when smaller); above
-    that, as in the JAX package, through the library factorisation."""
-    S = A.shape[-1]
-    if S > BS:
+    S <= 128 goes through K3, which reads the view in place (the identity
+    padding to 128 happens inside the kernel); above that, as in the JAX
+    package, through the library factorisation."""
+    if A.shape[-1] > BS:
         return torch.linalg.cholesky(A)
-    if S == BS:
-        return diag_chol(A.contiguous())
-    return diag_chol(pad_identity_tail(A, BS))[..., :S, :S]
+    return diag_chol(A)
 
 
 def _tri_inv_rows(L, dinv_of, nb: int, block: int, Sp: int):

@@ -28,12 +28,13 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # name: argument types; every function returns cudaGetLastError()
     "vargp_sym_gram": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "vargp_sym_gram_tri": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "vargp_cross_gram": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "vargp_diag_chol": (_P, _P, _I, _P),
+    "vargp_diag_chol": (_P, _P, _I, _L, _I, _I, _P),  # in, out, G, batch stride, row stride, h
     "vargp_rbf_gram": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "vargp_diag_chol_chunked": (_P, _P, _I, _P),
     "vargp_chol": (_P, _P, _I, _I, _I, _P),  # K, L, G, S, cluster size, stream

@@ -1,6 +1,8 @@
-"""Where K7's time goes on the card: an instrumented copy of its kernel.
+"""Where K7's and K3's time goes on the card: instrumented copies of their
+kernels.
 
     python -m vargp_tpu_torch.ops.cuda.chol_probe [G S ...]
+    python -m vargp_tpu_torch.ops.cuda.chol_probe --k3 [G ...]
 
 Builds (with ``nvcc``, into a temporary directory) a copy of
 ``csrc/chol_tile.cuh::cluster_chol`` with ``%globaltimer`` read around
@@ -12,8 +14,16 @@ time of the trailing tiles' products.  Then a microbenchmark of
 ``warp_mma`` (8 warps per SM on operands in shared memory, every SM
 busy): cycles per 8-deep step per warp for the 3xTF32 product and for
 the same three ``mma.sync`` without the split.  Default shapes: A (30,
-300) and B (30, 1000).  Needs a card and ``nvcc``; the kernel library is
-not touched.
+300) and B (30, 1000).
+
+``--k3``: K3 (``chol_tile.cuh::diag_chol_block``) on (G, 128, 128) with a
+probe that reads ``%globaltimer`` at each of ``diag_factor``'s events:
+the mean over blocks of the load, each chunk's (a) factor, (b) row solve
+and (c) update (the update of the next chunk's columns, then the next
+factor beside the rest of the update), and the write-out; and the
+kernel's time without the probe by CUDA events (20 launches after a
+warm-up).  Default G: 30 (A's and C's steps) and 200 (the analysis).
+Needs a card and ``nvcc``; the kernel library is not touched.
 """
 
 import subprocess
@@ -171,6 +181,113 @@ int main(int argc, char** argv) {
 }
 """
 
+_K3_HARNESS = r"""
+#include "chol_tile.cuh"
+#include <cstdio>
+#include <cstdlib>
+#include <vector>
+using namespace chol_tile;
+__device__ __forceinline__ unsigned long long gt() {
+  unsigned long long t;
+  asm volatile("mov.u64 %%0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+constexpr int kSlots = kEvents + 1;  // slot 0: the start, slot e + 1: event e
+// lane 0 of each warp that passes event e records the time in [e + 1][warp]
+struct Rec {
+  unsigned long long* t;
+  __device__ void operator()(int e) const {
+    if (threadIdx.x %% 32 == 0) t[(e + 1) * 8 + threadIdx.x / 32] = gt();
+  }
+};
+template <bool kProbe>
+__global__ void __launch_bounds__(kThreads, kDiagMinBlocks)
+    k3(const float* in, float* out, unsigned long long* rec) {
+  extern __shared__ __align__(16) float smem[];
+  const float* g = in + (size_t)blockIdx.x * kN * kN;
+  float* o = out + (size_t)blockIdx.x * kN * kN;
+  if (kProbe) {
+    Rec r{rec + (size_t)blockIdx.x * kSlots * 8};
+    if (threadIdx.x %% 32 == 0) r.t[threadIdx.x / 32] = gt();
+    diag_chol_block(g, kN, kN, true, o, smem, r);
+  } else {
+    diag_chol_block(g, kN, kN, true, o, smem);
+  }
+}
+void run(int G, const float* in, float* out, unsigned long long* rec) {
+  const int smem = kDiagSmemFloats * 4;
+  cudaFuncSetAttribute(k3<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaFuncSetAttribute(k3<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  std::vector<unsigned long long> h((size_t)G * kSlots * 8);
+  double mean[kSlots] = {0};
+  for (int it = 0; it < 3; ++it) {  // the last of three runs
+    cudaMemset(rec, 0, h.size() * 8);
+    k3<true><<<G, kThreads, smem>>>(in, out, rec);
+    cudaDeviceSynchronize();
+  }
+  cudaMemcpy(h.data(), rec, h.size() * 8, cudaMemcpyDeviceToHost);
+  for (int b = 0; b < G; ++b) {
+    const unsigned long long* q = &h[(size_t)b * kSlots * 8];
+    unsigned long long t0 = q[0];
+    for (int w = 1; w < 8; ++w) t0 = q[w] < t0 ? q[w] : t0;
+    for (int s = 1; s < kSlots; ++s) {  // an event's time: the latest warp that recorded it
+      unsigned long long m = 0;
+      for (int w = 0; w < 8; ++w) m = q[s * 8 + w] > m ? q[s * 8 + w] : m;
+      if (m) mean[s] += (m - t0) / 1e3 / G;
+    }
+  }
+  auto T = [&](int e) { return mean[e + 1]; };
+  k3<false><<<G, kThreads, smem>>>(in, out, rec);
+  cudaEvent_t a, b;
+  cudaEventCreate(&a), cudaEventCreate(&b);
+  cudaEventRecord(a);
+  for (int i = 0; i < 20; ++i) k3<false><<<G, kThreads, smem>>>(in, out, rec);
+  cudaEventRecord(b);
+  const cudaError_t e = cudaDeviceSynchronize();
+  float ms;
+  cudaEventElapsedTime(&ms, a, b);
+  printf("K3, G = %%d: %%s; %%.5f ms per launch by events (no probe); us since the block's start, "
+         "mean over blocks (the probe's own run):\n", G, cudaGetErrorString(e), ms / 20);
+  printf("  load %%.2f\n", T(kEvLoaded));
+  double prev = T(kEvLoaded), sa = T(ev(0, kEvA)) - prev, sb = 0, sc = 0, sr = 0;
+  printf("  chunk 0: (a) %%.2f", sa);
+  prev = T(ev(0, kEvA));
+  for (int k = 0; k < 3; ++k) {
+    const double b_ = T(ev(k, kEvB)) - prev, c_ = T(ev(k, kEvC)) - T(ev(k, kEvB));
+    const double a_ = T(ev(k + 1, kEvA)) - T(ev(k, kEvC));
+    const double r_ = T(ev(k, kEvRest)) - T(ev(k, kEvC)), j_ = T(ev(k, kEvJoin)) - T(ev(k, kEvC));
+    sb += b_, sc += c_, sa += a_, sr += r_;
+    printf(" (b) %%.2f (c, next chunk's columns) %%.2f\n  chunk %%d: (a) %%.2f beside the rest of "
+           "chunk %%d's (c) %%.2f, joined after %%.2f", b_, c_, k + 1, a_, k, r_, j_);
+    prev = T(ev(k, kEvJoin));
+  }
+  printf("\n  write-out %%.2f; total %%.2f | sums: (a) %%.2f (b) %%.2f (c) %%.2f, off the critical "
+         "path %%.2f\n", T(kEvStored) - prev, T(kEvStored), sa, sb, sc, sr);
+}
+int main(int argc, char** argv) {
+  for (int i = 1; i < argc; ++i) {
+    const int G = atoi(argv[i]);
+    std::vector<float> h((size_t)G * kN * kN);
+    srand(1);
+    for (int g = 0; g < G; ++g)
+      for (int r = 0; r < kN; ++r)
+        for (int c = 0; c <= r; ++c) {  // diagonally dominant: SPD
+          const float v = r == c ? 1.f : (rand() / (float)RAND_MAX - 0.5f) / kN;
+          h[((size_t)g * kN + r) * kN + c] = h[((size_t)g * kN + c) * kN + r] = v;
+        }
+    float *in, *out;
+    unsigned long long* rec;
+    cudaMalloc(&in, h.size() * 4);
+    cudaMalloc(&out, h.size() * 4);
+    cudaMalloc(&rec, (size_t)G * kSlots * 8 * 8);
+    cudaMemcpy(in, h.data(), h.size() * 4, cudaMemcpyHostToDevice);
+    run(G, in, out, rec);
+    cudaFree(in), cudaFree(out), cudaFree(rec);
+  }
+  return 0;
+}
+"""
+
 
 def _instrumented_body() -> str:
     """cluster_chol, renamed, with timers spliced in at fixed anchors."""
@@ -200,10 +317,16 @@ def _instrumented_body() -> str:
 
 
 def main(argv: list[str]) -> None:
-    shapes = argv or ["30", "300", "30", "1000"]
+    k3 = argv[:1] == ["--k3"]
+    if k3:
+        shapes = argv[1:] or ["30", "200"]
+        source = _K3_HARNESS % {}
+    else:
+        shapes = argv or ["30", "300", "30", "1000"]
+        source = _HARNESS % {"body": _instrumented_body()}
     with tempfile.TemporaryDirectory() as tmp:
         cu = Path(tmp) / "chol_probe.cu"
-        cu.write_text(_HARNESS % {"body": _instrumented_body()})
+        cu.write_text(source)
         exe = Path(tmp) / "chol_probe"
         flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
         subprocess.run([find_nvcc(), *flags, "-I", str(CSRC), "-o", str(exe), str(cu)], check=True)

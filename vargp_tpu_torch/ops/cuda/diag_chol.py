@@ -1,21 +1,25 @@
-"""K3 and K8: batched lower Cholesky of 128x128 SPD blocks.
+"""K3 and K8: batched lower Cholesky of SPD diagonal blocks up to 128 wide.
 
 K3 (``csrc/diag_chol.cu``, :func:`diag_chol`) replaces
 ``vargp_tpu/ops/pallas/chol_panel.py::diag_chol_pallas_t``; K8
 (``csrc/diag_chol_chunked.cu``, :func:`diag_chol_chunked`) replaces
 ``diag_chol_pallas`` of the same file, the chunked design of the same
 function (one entry for both of its TPU bodies: no ``unrolled`` flag).
-A CUDA tensor launches the kernel; a CPU tensor takes
-:func:`diag_chol_plain`.  All give NaN from a non-positive pivot (no
-clamp, no error swallowed), as the TPU kernels do.  The caller adds the
-jitter and pads smaller blocks with an identity tail.
+K3 takes (..., h, h) blocks with h <= 128 as views, read in place: the
+identity padding that the JAX package adds around its kernel happens in
+shared memory.  A CUDA tensor launches the kernel; a CPU tensor takes
+:func:`diag_chol_plain` on the h x h block itself, which gives bitwise
+the leading block of the factor of the identity-padded 128-block (the
+column loop's leading entries never read the tail).  All give NaN from a
+non-positive pivot (no clamp, no error swallowed), as the TPU kernels do,
+and read only the lower triangle.  The caller adds the jitter.
 """
 
 import torch
 
 from vargp_tpu_torch.ops.cuda.build import check_f32_contiguous, launch, on_cpu
 
-BS = 128  # the block size the kernel factors
+BS = 128  # the widest block the kernels factor
 
 
 def diag_chol_plain(A: torch.Tensor) -> torch.Tensor:
@@ -35,30 +39,72 @@ def diag_chol_plain(A: torch.Tensor) -> torch.Tensor:
     return L
 
 
-def _launch_blocks(wrapper, symbol: str, A: torch.Tensor) -> torch.Tensor:
-    if A.shape[-2:] != (BS, BS):
-        raise ValueError(f"{wrapper.__name__}: blocks must be {BS}x{BS}, got {tuple(A.shape)}")
-    check_f32_contiguous(wrapper.__name__, A)
-    G = A.numel() // (BS * BS)
-    out = torch.empty_like(A)
-    if G:
-        launch(symbol, A.device, A.data_ptr(), out.data_ptr(), G)
-        wrapper.launches += 1
-    return out
+def batch_stride(A: torch.Tensor) -> int:
+    """The one stride between consecutive blocks of A's flattened batch
+    dimensions (0 for fewer than two blocks); raises when they do not
+    flatten to one."""
+    stride, span = 0, None
+    if A.numel() == 0:
+        return stride
+    for size, s in zip(reversed(A.shape[:-2]), reversed(A.stride()[:-2])):
+        if size == 1:
+            continue
+        if span is not None and s != span:
+            raise ValueError(
+                f"diag_chol: batch dimensions {tuple(A.shape[:-2])} with strides "
+                f"{A.stride()[:-2]} do not flatten to one stride")
+        if span is None:
+            stride = s
+        span = s * size
+    return stride
+
+
+def _check_blocks(A: torch.Tensor) -> int:
+    """K3's checks of shape and strides, on every device; returns the batch
+    stride."""
+    h = A.shape[-1]
+    if A.dim() < 2 or A.shape[-2] != h or h > BS:
+        raise ValueError(f"diag_chol: blocks must be square and at most {BS} wide, "
+                         f"got {tuple(A.shape)}")
+    if h > 1 and A.stride(-1) != 1:
+        raise ValueError(f"diag_chol: the last stride must be 1, got strides {A.stride()}")
+    return batch_stride(A)
 
 
 def diag_chol(A: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factor of each (..., 128, 128) block, through K3."""
+    """Lower Cholesky factor of each (..., h, h) block (h <= 128), through
+    K3.  ``A`` may be a view: its last stride must be 1 and its batch
+    dimensions must flatten to one stride.  Returns a new contiguous
+    tensor."""
+    stride = _check_blocks(A)
+    h = A.shape[-1]
     if on_cpu(A):
         return diag_chol_plain(A)
-    return _launch_blocks(diag_chol, "vargp_diag_chol", A)
+    if A.dtype != torch.float32:
+        raise ValueError(f"diag_chol: the kernel takes float32, got {A.dtype}")
+    out = torch.empty(A.shape, dtype=A.dtype, device=A.device)
+    G = out.numel() // (h * h) if h else 0
+    if G:
+        launch("vargp_diag_chol", A.device, A.data_ptr(), out.data_ptr(), G, stride,
+               A.stride(-2), h)
+        diag_chol.launches += 1
+    return out
 
 
 def diag_chol_chunked(A: torch.Tensor) -> torch.Tensor:
-    """The same factor through K8, which reads only the lower triangle."""
+    """The same factor of contiguous (..., 128, 128) blocks through K8,
+    which reads only the lower triangle."""
     if on_cpu(A):
         return diag_chol_plain(A)
-    return _launch_blocks(diag_chol_chunked, "vargp_diag_chol_chunked", A)
+    if A.shape[-2:] != (BS, BS):
+        raise ValueError(f"diag_chol_chunked: blocks must be {BS}x{BS}, got {tuple(A.shape)}")
+    check_f32_contiguous("diag_chol_chunked", A)
+    G = A.numel() // (BS * BS)
+    out = torch.empty_like(A)
+    if G:
+        launch("vargp_diag_chol_chunked", A.device, A.data_ptr(), out.data_ptr(), G)
+        diag_chol_chunked.launches += 1
+    return out
 
 
 diag_chol.launches = 0
