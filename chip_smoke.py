@@ -14,13 +14,18 @@ result) on a failure:
    Cholesky, K4 cross-Gram, K5 generic Gram on pre-scaled inputs, K6 fused
    Cholesky and triangular inverse, K7 batched Cholesky, K8 chunked
    diagonal-block Cholesky) held against its plain PyTorch version on the
-   card, at the shapes of the paths and at a ragged shape (K3 also on
+   card, at the shapes of the paths and at a ragged shape (K2 also at one
+   (h, o) of 1000 rows; K4 also at B's and the evaluation's shapes, at a
+   second ragged shape and at one (h, o); K3 also on
    blocks 1, 33, 100, 125 and 128 wide read in place from matrices with
    row strides 300, 1000 and 875, at G = 200, and on the first diagonal
    blocks of A's, B's and the analysis's Grams as the paths hand them
    over: (30, 100, 100), (30, 125, 125), (200, 100, 100); K6 and K7 also at one
    panel, a one-row last panel and each cluster size their wrapper picks:
-   1, 4 and 8 blocks per matrix); K1, K2 and K5's K_zz (sx == sy) must be
+   1, 4 and 8 blocks per matrix); K2 and K4 at B's shape also against a
+   float64 Gram, within twice the f32 plain version's error, beside a
+   1xTF32 control that must fail that limit, and K2's diagonal must be
+   gamma2 exactly; K1, K2 and K5's K_zz (sx == sy) must be
    bitwise symmetric, K3, K6, K7 and K8 must give NaN on a non-positive
    pivot where their plain versions do (K3 also in a 100-wide block), and
    K6's L^-1 L must be the identity;
@@ -57,7 +62,9 @@ result) on a failure:
    a trace comes back with no device event, CUDA events with the host
    queued ahead of the card), and
    the kernel also with CUDA events around back-to-back calls (K3, K8,
-   and K6 and K7 at A's and B's shapes, also cold: a 256 MB buffer
+   K6 and K7 at A's and B's shapes, K2 at B's and K4 at A's, B's and the
+   evaluation's (H = 20), the last two with both bounds, 3xTF32 and f32,
+   and the effective TFLOP/s; all also cold: a 256 MB buffer
    written between calls, CUDA events around each; K3 also at the
    diagonal blocks of A's, B's and the analysis's factorisations and at
    G = 200, each beside ``torch.linalg.cholesky`` on the same view; K6
@@ -114,15 +121,39 @@ ANALYSIS = dict(n_f=50, n_var_samples=20, batch_size=512, seed=5, replay_cell=(1
 # and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-# K6 and K7 multiply on the tensor cores in 3xTF32: three TF32 products
-# (495 TFLOP/s dense) per f32 product
+# K2, K4, K6 and K7 multiply on the tensor cores in 3xTF32: three TF32
+# products (495 TFLOP/s dense) per f32 product
 PEAK_TF32X3_FLOPS = 495e12 / 3
+# K2 and K4 at the shapes the paths give them, (H, O, S, B, D): K2 at B's
+# step (no B), K4 at A's and B's steps and at the evaluation's predict
+# (H = 20 hyper samples, A's 300-row chain, batches of 512)
+GRAM_SHAPES = {
+    "sym_gram_tri": {"B": (PMNIST_LAST["H"], PMNIST_LAST["O"],
+                           PMNIST_LAST["n_tasks"] * PMNIST_LAST["M"], 0, PMNIST_LAST["D"])},
+    "cross_gram": {
+        "A": (FLAGSHIP["H"], FLAGSHIP["O"], FLAGSHIP["n_tasks"] * FLAGSHIP["M"], FLAGSHIP["B"],
+              FLAGSHIP["D"]),
+        "B": (PMNIST_LAST["H"], PMNIST_LAST["O"], PMNIST_LAST["n_tasks"] * PMNIST_LAST["M"],
+              PMNIST_LAST["B"], PMNIST_LAST["D"]),
+        "eval": (ANALYSIS["n_var_samples"], FLAGSHIP["O"], FLAGSHIP["n_tasks"] * FLAGSHIP["M"],
+                 ANALYSIS["batch_size"], FLAGSHIP["D"]),
+    },
+}
 
 # Tolerances, each against the plain version on the same card and inputs.
 # Grams: values lie in [0, gamma2]; the kernel and the plain einsum sum the
 # D=784 products in different orders, so d2 differs by a few f32 ulps of
 # the squared norms (~1e-5 relative), which moves K by about that much.
 TOL_GRAM = 1e-4
+# K2 and K4 at B's shape against a float64 Gram on the card: within twice
+# the f32 plain version's max error against the same float64 Gram (as
+# tests/test_torch_gram_mma.py holds the emulated tile).  Both carry the
+# f32 rounding of na + nb - 2 <a, b>; a 3xTF32 product adds less than
+# that, a product that dropped its two cross terms (1xTF32) adds far more,
+# and the check holds such a control to failing the same limit.  K2 is
+# held off its diagonal, where it writes gamma2 exactly (d^2 = 0) and the
+# plain version's d^2 is rounding; there it must equal gamma2.
+F64_RATIO = 2.0
 # Cholesky of a well-conditioned block (eigenvalues >= 0.5): right-looking
 # column order in both, FMA rounding only in the kernel.
 TOL_CHOL = 1e-4
@@ -252,6 +283,56 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(torch.max(torch.abs(a - b)))
 
 
+def tf32(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to TF32 as the kernels' split rounds it (to nearest, ties
+    away from zero: half of the 13 dropped bits added, then cleared)."""
+    return ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def sym_gram_1xtf32(z, invs, gamma2):
+    """K2's function with the product in one TF32 term (big*big: the two
+    cross terms of the 3-term product dropped), norms in f32: the control
+    the float64 check must catch."""
+    sz = z[None] * invs[:, None, None, :]
+    nn = torch.sum(sz * sz, dim=-1)
+    xy = torch.einsum("homd,hond->homn", tf32(sz), tf32(sz))
+    d2 = torch.clamp(nn[..., :, None] - 2.0 * xy + nn[..., None, :], min=0.0)
+    return gamma2[:, None, None, None] * torch.exp(-0.5 * d2)
+
+
+def cross_gram_1xtf32(z, x, invs2, gamma2):
+    """K4's function with the product in one TF32 term, as sym_gram_1xtf32."""
+    xs = x[None] * invs2[:, None, :]
+    cross = torch.einsum("oid,hbd->hoib", tf32(z), tf32(xs))
+    zz = torch.einsum("oid,hd->hoi", z * z, invs2)
+    xx = torch.einsum("bd,hd->hb", x * x, invs2)
+    d2 = torch.clamp(zz[..., None] + xx[:, None, None, :] - 2.0 * cross, min=0.0)
+    return gamma2[:, None, None, None] * torch.exp(-0.5 * d2)
+
+
+def check_f64(name: str, got, plain, control, args, keep=None) -> dict:
+    """The kernel's output ``got``, the f32 plain version and the 1xTF32
+    ``control`` on ``args``, each against the plain version in float64 on
+    the same inputs (over the entries ``keep`` selects, all by default):
+    raise unless the kernel lies within F64_RATIO times the plain version's
+    error and the control does not.  Returns the three errors."""
+    ref = plain(*(a.double() for a in args))
+    sel = (lambda t: t) if keep is None else (lambda t: t[..., keep])
+    ref = sel(ref)
+    errs = {"kernel": max_abs_err(sel(got), ref), "plain_f32": max_abs_err(sel(plain(*args)), ref),
+            "control_1xtf32": max_abs_err(sel(control(*args)), ref)}
+    limit = F64_RATIO * errs["plain_f32"]
+    print(f"  {name} against float64: max abs err kernel {errs['kernel']:.3e}, f32 plain "
+          f"{errs['plain_f32']:.3e}, 1xTF32 control {errs['control_1xtf32']:.3e} (limit {limit:.3e})")
+    if not errs["kernel"] <= limit:
+        raise AssertionError(f"{name}: {errs['kernel']} from float64, above {F64_RATIO}x the f32 "
+                             f"plain version's {errs['plain_f32']}")
+    if not errs["control_1xtf32"] > limit:
+        raise AssertionError(f"{name}: the 1xTF32 control passed the float64 limit {limit}: the "
+                             f"check cannot tell a 3xTF32 product from a 1xTF32 one")
+    return errs
+
+
 def check(name: str, err: float, tol: float, scale: float = 1.0) -> None:
     """Raise unless the max abs error ``err`` is within ``tol``; ``scale``
     is the largest reference value, for the relative figure printed."""
@@ -363,21 +444,26 @@ def flagship_model(device, seed=SEED, shape=FLAGSHIP, dkl=False):
 
 
 def check_kernels(dev):
-    """K1 and K4 against their plain versions on the card; returns the
-    largest error per kernel and the flagship-shaped inputs for timing."""
+    """K1 and K4 against their plain versions on the card: K1 at A's shape
+    and a ragged one (bitwise symmetric); K4 at each shape of GRAM_SHAPES
+    (A's, B's, the evaluation's), two ragged ones (D = 33: the 4-byte
+    copies; 77 rows, part of one row tile, and 333, the third tile
+    partial) and one (h, o) with a ragged last column tile, each launch
+    counted; at B's shape also against float64 (check_f64).  Returns the
+    largest error per kernel, A's inputs for timing K1 and K4's errors
+    against float64."""
     from vargp_tpu_torch.ops.cuda.cross_gram import cross_gram, cross_gram_plain
     from vargp_tpu_torch.ops.cuda.sym_gram import sym_gram, sym_gram_plain
 
     f = FLAGSHIP
     rng = np.random.default_rng(SEED + 1)
-    S = f["n_tasks"] * f["M"]
     errs = {"sym_gram": 0.0, "cross_gram": 0.0}
     flag = {}
-    for label, (O, M, D, H, B) in (
-        ("flagship", (f["O"], S, f["D"], f["H"], f["B"])),
-        ("ragged", (2, 77, 33, 2, 45)),
+    for label, (O, M, D, H) in (
+        ("flagship", (f["O"], f["n_tasks"] * f["M"], f["D"], f["H"])),
+        ("ragged", (2, 77, 33, 2)),
     ):
-        z, x, invs, invs2, gamma2 = gram_inputs(rng, O, M, D, H, B, dev)
+        z, _, invs, _, gamma2 = gram_inputs(rng, O, M, D, H, 1, dev)
         K = sym_gram(z, invs, gamma2)
         torch.cuda.synchronize()
         ref = sym_gram_plain(z, invs, gamma2)
@@ -387,17 +473,28 @@ def check_kernels(dev):
         if not torch.equal(K, K.transpose(-1, -2)):
             raise AssertionError("K1 output is not exactly symmetric")
         errs["sym_gram"] = max(errs["sym_gram"], e)
+        if label == "flagship":
+            flag.update(z=z, invs=invs, gamma2=gamma2)
+    k4_cases = {label: (O, S, D, H, B) for label, (H, O, S, B, D) in GRAM_SHAPES["cross_gram"].items()}
+    k4_cases.update({"ragged": (2, 77, 33, 2, 45), "ragged, 3 row tiles": (2, 333, 33, 2, 45),
+                     "H*O = 1": (1, 1000, 784, 1, 200)})
+    for label, (O, M, D, H, B) in k4_cases.items():
+        z, x, _, invs2, gamma2 = gram_inputs(rng, O, M, D, H, B, dev)
+        before = cross_gram.launches
         Kx = cross_gram(z, x, invs2, gamma2)
         torch.cuda.synchronize()
+        if cross_gram.launches != before + 1:
+            raise AssertionError("K4's launch counter did not count its launch")
         ref = cross_gram_plain(z, x, invs2, gamma2)
         e = max_abs_err(Kx, ref)
         check(f"K4 cross_gram {label} {tuple(Kx.shape)}", e, TOL_GRAM * float(gamma2.max()),
               float(ref.abs().max()))
         errs["cross_gram"] = max(errs["cross_gram"], e)
-        if label == "flagship":
-            flag.update(z=z, x=x, invs=invs, invs2=invs2, gamma2=gamma2)
-
-    return errs, flag
+        if label == "B":
+            f64 = check_f64(f"K4 cross_gram {label}", Kx, cross_gram_plain, cross_gram_1xtf32,
+                            (z, x, invs2, gamma2))
+        del Kx, ref
+    return errs, flag, f64
 
 
 # K3's blocks as the default route hands them over: A's and C's 100-wide
@@ -460,9 +557,13 @@ def check_k3(dev):
 
 
 def check_k2(dev):
-    """K2 against its plain version on the card at B's shape and a ragged
-    one: within tolerance, bitwise symmetric, one launch per call.  Returns
-    the largest error and B's inputs for timing."""
+    """K2 against its plain version on the card at B's shape (S = 1000: the
+    last 128-row tile holds 104 rows), a ragged one (D = 33: the 4-byte
+    copies) and one (h, o) at S = 1000: within tolerance, bitwise
+    symmetric, gamma2 exactly on the diagonal, one launch per call; at B's
+    shape also against float64 off the diagonal (check_f64).  Returns the
+    largest error, B's inputs for timing K1 at B's shape and the errors
+    against float64."""
     from vargp_tpu_torch.ops.cuda.sym_gram import sym_gram, sym_gram_plain
     from vargp_tpu_torch.ops.cuda.sym_gram_tri import sym_gram_tri
 
@@ -472,6 +573,7 @@ def check_k2(dev):
     for label, (O, M, D, H) in (
         ("B", (f["O"], f["n_tasks"] * f["M"], f["D"], f["H"])),
         ("ragged", (3, 520, 33, 2)),
+        ("H*O = 1", (1, 1000, 784, 1)),
     ):
         z, _, invs, _, gamma2 = gram_inputs(rng, O, M, D, H, 1, dev)
         before = sym_gram_tri.launches
@@ -485,12 +587,21 @@ def check_k2(dev):
               float(ref.abs().max()))
         if not torch.equal(K, K.transpose(-1, -2)):
             raise AssertionError("K2 output is not exactly symmetric")
+        eye = torch.eye(M, dtype=torch.bool, device=dev)
+        if not torch.equal(K[..., eye], gamma2[:, None, None].expand(H, O, M)):
+            raise AssertionError("K2's diagonal is not gamma2 exactly")
+        print(f"  K2 {label}: max abs err on the diagonal {max_abs_err(K[..., eye], ref[..., eye]):.3e} "
+              f"(K2 writes gamma2 there, d^2 = 0; the plain version's d^2 is rounding), off it "
+              f"{max_abs_err(K[..., ~eye], ref[..., ~eye]):.3e}")
         K1 = sym_gram(z, invs, gamma2)
-        print(f"  K2 against K1 on the same inputs: max abs difference {max_abs_err(K, K1):.3e}")
+        print(f"  K2 (3xTF32) against K1 (f32) on the same inputs: max abs difference "
+              f"{max_abs_err(K, K1):.3e}")
         err = max(err, e)
         if label == "B":
             flag.update(z=z, invs=invs, gamma2=gamma2)
-    return err, flag
+            f64 = check_f64(f"K2 sym_gram_tri {label}, off the diagonal", K, sym_gram_plain,
+                            sym_gram_1xtf32, (z, invs, gamma2), keep=~eye)
+    return err, flag, f64
 
 
 def check_k5(dev):
@@ -991,6 +1102,65 @@ def time_k3(blocks: dict) -> dict:
     return out
 
 
+def kernel_times(fn, plain, library, flops, nbytes, peak=PEAK_F32_FLOPS, one_kernel=True,
+                 **info) -> dict:
+    """One kernel's numbers at one shape: ``info`` (its shape, say), then
+    its device time per call (``device_ms``, per traced launch when ``fn``
+    launches one kernel), CUDA events around back-to-back calls, cold, the
+    plain version's and the library call's device times, the bound at
+    ``peak`` (and, where ``peak`` is another, at the f32 rate), the work and
+    the effective TFLOP/s."""
+    ms = device_ms(fn, one_kernel=one_kernel)
+    t = dict(info, ms=ms, event_ms=time_ms(fn), cold_ms=cold_ms(fn),
+             plain_ms=device_ms(plain, reps=5, warmup=1), library_ms=device_ms(library))
+    t["bound_ms"], t["bound_by"] = bound(flops, nbytes, peak)
+    if peak != PEAK_F32_FLOPS:
+        t["bound_f32_ms"], t["bound_f32_by"] = bound(flops, nbytes)
+    t.update(gflop=flops / 1e9, mbytes=nbytes / 1e6, tflops=flops / ms / 1e9)
+    return t
+
+
+def fmt_times(t: dict) -> str:
+    return "  ".join(f"{k} {v:.5f}" if isinstance(v, float) else f"{k} {v}" for k, v in t.items())
+
+
+def gram_case(n, H, O, S, B, D, rng, dev) -> dict:
+    """K2 (``n`` = sym_gram_tri) or K4 at one shape, as kernel_times takes
+    it: the kernel, its plain version and the yardstick (``cdist`` + ``exp``
+    on inputs scaled beforehand), the operations (K2: its S(S+1)/2 distinct
+    entries) and bytes (inputs read once, the output written once), at the
+    3xTF32 rate the kernels multiply at."""
+    from vargp_tpu_torch.ops.cuda.cross_gram import cross_gram, cross_gram_plain
+    from vargp_tpu_torch.ops.cuda.sym_gram import sym_gram_plain
+    from vargp_tpu_torch.ops.cuda.sym_gram_tri import sym_gram_tri
+
+    z, x, invs, invs2, gamma2 = gram_inputs(rng, O, S, D, H, max(B, 1), dev)
+    g4 = gamma2[:, None, None, None]
+    if n == "sym_gram_tri":
+        sz = (z[None] * invs[:, None, None, :]).reshape(H * O, S, D)
+        return dict(
+            shape=[H, O, S, D], fn=lambda: sym_gram_tri(z, invs, gamma2),
+            plain=lambda: sym_gram_plain(z, invs, gamma2),
+            library=lambda: g4 * torch.exp(-0.5 * torch.cdist(sz, sz).square().view(H, O, S, S)),
+            flops=1.0 * H * O * S * (S + 1) * D,
+            nbytes=4.0 * (O * S * D + 2 * H * D + H + H * O * S * S), peak=PEAK_TF32X3_FLOPS)
+    zw = (z[None] * invs2.sqrt()[:, None, None, :]).reshape(H * O, S, D)
+    xw = (x[None] * invs2.sqrt()[:, None, :])[:, None].expand(H, O, B, D).reshape(H * O, B, D)
+    return dict(
+        shape=[H, O, S, B, D], fn=lambda: cross_gram(z, x, invs2, gamma2),
+        plain=lambda: cross_gram_plain(z, x, invs2, gamma2),
+        library=lambda: g4 * torch.exp(-0.5 * torch.cdist(zw, xw).square().view(H, O, S, B)),
+        flops=2.0 * H * O * S * B * D,
+        nbytes=4.0 * (O * S * D + B * D + H * D + H + H * O * S * B), peak=PEAK_TF32X3_FLOPS)
+
+
+def gram_cases(dev) -> dict:
+    """{kernel: {shape label: gram_case}} over GRAM_SHAPES."""
+    rng = np.random.default_rng(SEED + 7)
+    return {n: {label: gram_case(n, *shape, rng, dev) for label, shape in shapes.items()}
+            for n, shapes in GRAM_SHAPES.items()}
+
+
 def traced_step(fn, reps: int = 5):
     """Kernel launches and device-busy ms per call of ``fn`` under
     torch.profiler (as scripts/profile_torch_train.py counts them), after a
@@ -1049,11 +1219,9 @@ def main() -> int:
 
     import vargp_tpu_torch  # noqa: F401  (sets the TF32 flags)
     from vargp_tpu_torch.ops.cuda import build
-    from vargp_tpu_torch.ops.cuda.cross_gram import cross_gram, cross_gram_plain
     from vargp_tpu_torch.ops.cuda.diag_chol import diag_chol, diag_chol_plain
     from vargp_tpu_torch.ops.cuda.rbf_gram import rbf_gram, rbf_gram_plain
     from vargp_tpu_torch.ops.cuda.sym_gram import sym_gram, sym_gram_plain
-    from vargp_tpu_torch.ops.cuda.sym_gram_tri import sym_gram_tri
 
     t0 = time.perf_counter()
     build.library()
@@ -1061,9 +1229,10 @@ def main() -> int:
 
     dev = torch.device("cuda")
     print("kernels against their plain versions on the card:")
-    errs, flag = check_kernels(dev)
+    errs, flag, f64_k4 = check_kernels(dev)
     errs["diag_chol"], flag_k3 = check_k3(dev)
-    errs["sym_gram_tri"], flag_b = check_k2(dev)
+    errs["sym_gram_tri"], flag_b, f64_k2 = check_k2(dev)
+    f64 = {"sym_gram_tri": f64_k2, "cross_gram": f64_k4}
     errs["rbf_gram"], flag_c = check_k5(dev)
     errs_chol, flag_chol, clusters = check_chol_kernels(dev)
     errs.update(errs_chol)
@@ -1103,52 +1272,45 @@ def main() -> int:
     analysis = check_analysis(dev)
 
     print("timings (ms per call):")
-    z, x, invs, invs2, gamma2 = (flag[k] for k in ("z", "x", "invs", "invs2", "gamma2"))
+    z, invs, gamma2 = (flag[k] for k in ("z", "invs", "gamma2"))
     spd = flag_k3["(30, 128, 128)"]
-    H, (O, S, D), B, G = invs.shape[0], z.shape, x.shape[0], spd.shape[0]
+    H, (O, S, D), G = invs.shape[0], z.shape, spd.shape[0]
     sz = (z[None] * invs[:, None, None, :]).reshape(H * O, S, D)
-    zw = (z[None] * invs2.sqrt()[:, None, None, :]).reshape(H * O, S, D)
-    xw = (x[None] * invs2.sqrt()[:, None, :]).expand(H, B, D)
-    xw = xw[:, None].expand(H, O, B, D).reshape(H * O, B, D)
     g4 = gamma2[:, None, None, None]
+    grams = gram_cases(dev)
+    # Each entry's cases are the shapes it is timed at (kernel_times'
+    # arguments); the row holds the first case's numbers, the others nested
+    # as at_<label>.
     entries = [
         dict(
             name="sym_gram", route="cuda", source="vargp_tpu_torch/csrc/sym_gram.cu",
             replaces="vargp_tpu/ops/pallas/rbf_gram.py:305",
-            fn=lambda: sym_gram(z, invs, gamma2), plain=lambda: sym_gram_plain(z, invs, gamma2),
-            library=lambda: g4 * torch.exp(-0.5 * torch.cdist(sz, sz).square().view(H, O, S, S)),
-            # the Gram is symmetric: S(S+1)/2 distinct entries per (h, o), 2D each
-            flops=1.0 * H * O * S * (S + 1) * D, nbytes=4.0 * (O * S * D + 2 * H * D + H + H * O * S * S),
+            cases={"A": dict(
+                fn=lambda: sym_gram(z, invs, gamma2), plain=lambda: sym_gram_plain(z, invs, gamma2),
+                library=lambda: g4 * torch.exp(-0.5 * torch.cdist(sz, sz).square().view(H, O, S, S)),
+                # the Gram is symmetric: S(S+1)/2 distinct entries per (h, o), 2D each
+                flops=1.0 * H * O * S * (S + 1) * D,
+                nbytes=4.0 * (O * S * D + 2 * H * D + H + H * O * S * S))},
+        ),
+        dict(
+            name="sym_gram_tri", route="cuda", source="vargp_tpu_torch/csrc/sym_gram_tri.cu",
+            replaces="vargp_tpu/ops/pallas/rbf_gram.py:258", cases=grams["sym_gram_tri"],
         ),
         dict(
             name="diag_chol", route="cuda", source="vargp_tpu_torch/csrc/diag_chol.cu",
             replaces="vargp_tpu/ops/pallas/chol_panel.py:255",
-            fn=lambda: diag_chol(spd), plain=lambda: diag_chol_plain(spd),
-            library=lambda: torch.linalg.cholesky(spd),
-            # the lower triangle is read, the whole factor written
-            flops=G * 128.0 ** 3 / 3.0, nbytes=4.0 * G * (128 * 129 / 2 + 128 * 128),
+            cases={"(30, 128, 128)": dict(
+                fn=lambda: diag_chol(spd), plain=lambda: diag_chol_plain(spd),
+                library=lambda: torch.linalg.cholesky(spd),
+                # the lower triangle is read, the whole factor written
+                flops=G * 128.0 ** 3 / 3.0, nbytes=4.0 * G * (128 * 129 / 2 + 128 * 128))},
         ),
         dict(
             name="cross_gram", route="cuda", source="vargp_tpu_torch/csrc/cross_gram.cu",
-            replaces="vargp_tpu/ops/pallas/rbf_gram.py:420",
-            fn=lambda: cross_gram(z, x, invs2, gamma2), plain=lambda: cross_gram_plain(z, x, invs2, gamma2),
-            library=lambda: g4 * torch.exp(-0.5 * torch.cdist(zw, xw).square().view(H, O, S, B)),
-            flops=2.0 * H * O * S * B * D, nbytes=4.0 * (O * S * D + B * D + H * D + H + H * O * S * B),
+            replaces="vargp_tpu/ops/pallas/rbf_gram.py:420", cases=grams["cross_gram"],
         ),
     ]
     zb, invsb, g2b = (flag_b[k] for k in ("z", "invs", "gamma2"))
-    Ob, Sb, Db = zb.shape
-    Hb = invsb.shape[0]
-    szb = (zb[None] * invsb[:, None, None, :]).reshape(Hb * Ob, Sb, Db)
-    g4b = g2b[:, None, None, None]
-    entries.insert(1, dict(
-        name="sym_gram_tri", route="cuda", source="vargp_tpu_torch/csrc/sym_gram_tri.cu",
-        replaces="vargp_tpu/ops/pallas/rbf_gram.py:258",
-        fn=lambda: sym_gram_tri(zb, invsb, g2b), plain=lambda: sym_gram_plain(zb, invsb, g2b),
-        library=lambda: g4b * torch.exp(-0.5 * torch.cdist(szb, szb).square().view(Hb, Ob, Sb, Sb)),
-        flops=1.0 * Hb * Ob * Sb * (Sb + 1) * Db,
-        nbytes=4.0 * (Ob * Sb * Db + 2 * Hb * Db + Hb + Hb * Ob * Sb * Sb),
-    ))
     # K5: the two Grams of a C step, K_zz (sx is sy: S(S+1)/2 distinct
     # entries, sx read once) and K_zx, timed and bounded together
     sc, xc, g2c = (flag_c[k] for k in ("sz", "sx", "g2"))
@@ -1164,10 +1326,12 @@ def main() -> int:
     entries.append(dict(
         name="rbf_gram", route="cuda", source="vargp_tpu_torch/csrc/rbf_gram.cu",
         replaces="vargp_tpu/ops/pallas/rbf_gram.py:47",
-        fn=lambda: [f[0]() for f in k5.values()], plain=lambda: [f[1]() for f in k5.values()],
-        library=lambda: [f[2]() for f in k5.values()],
-        flops=1.0 * Gc * Sc * (Sc + 1) * Fc + 2.0 * Gc * Sc * Bc * Fc,
-        nbytes=4.0 * (Gc * Sc * Fc + Gc + Gc * Sc * Sc) + 4.0 * (Gc * Sc * Fc + Gc * Bc * Fc + Gc + Gc * Sc * Bc),
+        cases={"C": dict(
+            fn=lambda: [f[0]() for f in k5.values()], plain=lambda: [f[1]() for f in k5.values()],
+            library=lambda: [f[2]() for f in k5.values()], one_kernel=False,  # both Grams
+            flops=1.0 * Gc * Sc * (Sc + 1) * Fc + 2.0 * Gc * Sc * Bc * Fc,
+            nbytes=4.0 * (Gc * Sc * Fc + Gc + Gc * Sc * Sc)
+            + 4.0 * (Gc * Sc * Fc + Gc * Bc * Fc + Gc + Gc * Sc * Bc))},
     ))
     # K8, K7 and K6: the lower triangle read once, each factor written
     # whole; K7 S^3/3 FMAs' worth of operations, K6 twice that (the
@@ -1190,8 +1354,9 @@ def main() -> int:
     entries.append(dict(
         name="diag_chol_chunked", route="cuda", source="vargp_tpu_torch/csrc/diag_chol_chunked.cu",
         replaces="vargp_tpu/ops/pallas/chol_panel.py:311", path=None,
-        fn=lambda: diag_chol_chunked(k8in), plain=lambda: diag_chol_plain(k8in),
-        library=lambda: torch.linalg.cholesky(k8in), **chol_work(k8in, 1, 1),
+        cases={"(30, 128, 128)": dict(
+            fn=lambda: diag_chol_chunked(k8in), plain=lambda: diag_chol_plain(k8in),
+            library=lambda: torch.linalg.cholesky(k8in), **chol_work(k8in, 1, 1))},
     ))
     for n, path, src, rpl, fn, plain, lib, n_out, n_f in (
         ("cholesky", "solve", "chol.cu", "chol.py:82", cholesky, cholesky_plain,
@@ -1199,15 +1364,16 @@ def main() -> int:
         ("chol_inv", "fused", "chol_inv.cu", "chol_inv.py:117", chol_inv, chol_inv_plain,
          cholinv_library, 2, 2),
     ):
-        for cfg_name in ("A", "B"):
-            K = flag_chol[cfg_name]
-            entries.append(dict(
-                name=n, shape=cfg_name, route="cuda", source=f"vargp_tpu_torch/csrc/{src}",
-                replaces=f"vargp_tpu/ops/pallas/{rpl}", path=path,
+        entries.append(dict(
+            name=n, route="cuda", source=f"vargp_tpu_torch/csrc/{src}",
+            replaces=f"vargp_tpu/ops/pallas/{rpl}", path=path,
+            cases={cfg_name: dict(
                 cluster=clusters[cfg_name], peak=PEAK_TF32X3_FLOPS,
-                fn=functools.partial(fn, K), plain=functools.partial(plain, K),
-                library=functools.partial(lib, K), **chol_work(K, n_out, n_f),
-            ))
+                fn=functools.partial(fn, flag_chol[cfg_name]),
+                plain=functools.partial(plain, flag_chol[cfg_name]),
+                library=functools.partial(lib, flag_chol[cfg_name]),
+                **chol_work(flag_chol[cfg_name], n_out, n_f)) for cfg_name in ("A", "B")},
+        ))
     for label, (fn, plain, lib) in k5.items():
         print(f"  rbf_gram (K5) {label} alone, device time: kernel {device_ms(fn):.4f}  plain "
               f"{device_ms(plain, reps=5, warmup=1):.4f}  yardstick {device_ms(lib):.4f}")
@@ -1218,32 +1384,17 @@ def main() -> int:
     # route's steps, or the route that the kernel serves (K7 solve, K6
     # fused); K8 is reached by no path.
     for e in entries:
-        ms = device_ms(e["fn"], one_kernel=e["name"] != "rbf_gram")  # K5's entry runs both Grams
-        plain_ms, lib_ms = device_ms(e["plain"], reps=5, warmup=1), device_ms(e["library"])
-        event_ms = time_ms(e["fn"])
-        b_ms, b_by = bound(e["flops"], e["nbytes"], e.get("peak", PEAK_F32_FLOPS))
         n = e["name"]
+        times = {}
+        for label, case in e["cases"].items():
+            times[label] = kernel_times(**case)
+            print(f"  {n} at {label}: {fmt_times(times[label])}")
+        first, *rest = times
+        t = times[first]
         path = e.get("path", "default")
         steps = step_launches if path == "default" else route_launches.get(path, {})
         per_step = {k: v[n] for k, v in steps.items()}
-        if n in ("diag_chol", "diag_chol_chunked"):  # K3 and K8 against the library by events too
-            e["cold_ms"], lib_event_ms = cold_ms(e["fn"]), time_ms(e["library"])
-            print(f"  {n} at {tuple(spd.shape)}: cold {e['cold_ms']:.5f}; against torch.linalg.cholesky "
-                  f"(device {lib_ms:.5f}, events {lib_event_ms:.5f}): "
-                  f"{'faster' if ms < lib_ms else 'SLOWER'} by device time, "
-                  f"{'faster' if event_ms < lib_event_ms else 'SLOWER'} by events")
-        if "shape" in e:  # K7 and K6 at A, then at B: one JSON entry, B's numbers nested
-            times = {"ms": ms, "event_ms": event_ms, "cold_ms": cold_ms(e["fn"]),
-                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": lib_ms, "cluster": e["cluster"]}
-            print(f"  {n} at {e['shape']}: " + "  ".join(
-                f"{k} {v:.5f}" if isinstance(v, float) else f"{k} {v}" for k, v in times.items()))
-            if e["shape"] == "B":
-                kernels[-1]["at_B"] = times
-                continue
-        print(f"  {n}: kernel {ms:.4f} (events {event_ms:.4f})  plain {plain_ms:.4f}  "
-              f"yardstick {lib_ms:.4f}  "
-              f"bound {b_ms:.5f} ({b_by})  launches per train step {per_step}, "
+        print(f"  {n}: launches per train step {per_step}, "
               f"per forward (loss + predict) { {k: v[n] for k, v in forward_launches.items()} }, "
               f"per train block { {k: v[n] for k, v in block_launches.items()} }, "
               f"in the analysis {analysis['launches'][n]}")
@@ -1251,13 +1402,17 @@ def main() -> int:
             "name": n, "route": e["route"], "source": e["source"], "replaces": e["replaces"],
             # launches: the counted train steps (A, B, C) of the kernel's path
             "launches": sum(per_step.values()), "launches_per_step": per_step, "path": path,
-            "max_abs_err": errs[n], "ms": ms, "event_ms": event_ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "max_abs_err": errs[n], **t, **{f"at_{lb}": times[lb] for lb in rest},
         })
-        if "shape" in e:  # K7 and K6: A's cold time and cluster size beside the warm numbers
-            kernels[-1].update(cold_ms=times["cold_ms"], cluster=times["cluster"])
-        if "cold_ms" in e:  # K3 and K8
-            kernels[-1].update(cold_ms=e["cold_ms"], library_event_ms=lib_event_ms)
+        if n in f64:  # K2 and K4 against float64
+            kernels[-1]["f64"] = f64[n]
+        if n in ("diag_chol", "diag_chol_chunked"):  # K3 and K8 against the library by events too
+            lib_event_ms = time_ms(e["cases"][first]["library"])
+            kernels[-1]["library_event_ms"] = lib_event_ms
+            print(f"  {n} at {first}: against torch.linalg.cholesky (device {t['library_ms']:.5f}, "
+                  f"events {lib_event_ms:.5f}): "
+                  f"{'faster' if t['ms'] < t['library_ms'] else 'SLOWER'} by device time, "
+                  f"{'faster' if t['event_ms'] < lib_event_ms else 'SLOWER'} by events")
         if n == "diag_chol":  # K3 at the shapes the paths give it
             kernels[-1]["at_shapes"] = time_k3(flag_k3)
     # K6 beside the route it would replace, K7 beside torch.linalg.cholesky
@@ -1283,7 +1438,7 @@ def main() -> int:
           f"CUDA events, the host queued ahead: K7 {queued_ms(lambda: cholesky(K)):.4f}  "
           f"K6 {queued_ms(lambda: chol_inv(K)):.4f}  K8 {queued_ms(lambda: diag_chol_chunked(K)):.4f}  "
           f"K3 {queued_ms(lambda: diag_chol(K)):.4f}")
-    print(f"  sym_gram (K1) at B's shape {tuple(szb.shape)}: "
+    print(f"  sym_gram (K1) at B's shape {tuple(zb.shape)}, H = {invsb.shape[0]}: "
           f"{time_ms(lambda: sym_gram(zb, invsb, g2b)):.4f}")
 
     from vargp_tpu_torch.models import vargp as V

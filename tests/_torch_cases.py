@@ -31,6 +31,22 @@ SIZES = {
 }
 
 
+def _tf32(a: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 as cvt.rna.tf32.f32 rounds: to nearest with ties
+    away from zero, 10 mantissa bits kept (on the int32 view: add half of
+    the dropped 13 bits to the magnitude, then clear them)."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm3(a, b):
+    """The kernels' 3xTF32 product: big = tf32(x), small = tf32(x - big),
+    small*big + big*small + big*big summed in f32."""
+    ab, bb = _tf32(a), _tf32(b)
+    asm, bsm = _tf32(a - ab), _tf32(b - bb)
+    return torch.matmul(asm, bb) + torch.matmul(ab, bsm) + torch.matmul(ab, bb)
+
+
 def np_tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 

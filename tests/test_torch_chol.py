@@ -18,8 +18,8 @@ symmetric parts as tests/test_pallas.py does).
 
 The kernels compute their products in 3xTF32 on the tensor cores; a test
 here runs the plain panel algorithm through an emulation of that
-arithmetic (the helpers below, not in the package) and holds the factor
-to the smoke test's tolerance, 1e-4 absolute, of a float64 factor; another
+arithmetic (helpers of tests/_torch_cases.py, not in the package) and
+holds the factor to the smoke test's tolerance, 1e-4 absolute, of a float64 factor; another
 does the same for K3's 32-column chunks.
 
 K3 reads the lower triangle, the Pallas K3 rows as columns (the upper
@@ -47,6 +47,7 @@ from vargp_tpu_torch.ops.cuda.chol import (blocked_plain, cholesky, cholesky_pla
 from vargp_tpu_torch.ops.cuda.chol_inv import chol_inv, chol_inv_plain
 from vargp_tpu_torch.gpmath import linalg as tlinalg
 from vargp_tpu_torch.ops.cuda.diag_chol import diag_chol, diag_chol_chunked, diag_chol_plain
+from tests._torch_cases import _mm3, _tf32
 
 f32 = np.float32
 # one intra-op thread per test process, as tests/_torch_cases.py sets it
@@ -202,22 +203,6 @@ def test_wrappers_reject_unknown_devices():
         with pytest.raises(ValueError, match="no kernel for device"):
             fn(K)
     assert cholesky.launches == chol_inv.launches == diag_chol_chunked.launches == 0
-
-
-def _tf32(a: torch.Tensor) -> torch.Tensor:
-    """f32 rounded to TF32 as cvt.rna.tf32.f32 rounds: to nearest with ties
-    away from zero, 10 mantissa bits kept (on the int32 view: add half of
-    the dropped 13 bits to the magnitude, then clear them)."""
-    bits = a.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def _mm3(a, b):
-    """The kernels' 3xTF32 product: big = tf32(x), small = tf32(x - big),
-    small*big + big*small + big*big summed in f32."""
-    ab, bb = _tf32(a), _tf32(b)
-    asm, bsm = _tf32(a - ab), _tf32(b - bb)
-    return torch.matmul(asm, bb) + torch.matmul(ab, bsm) + torch.matmul(ab, bb)
 
 
 def _mm1(a, b):

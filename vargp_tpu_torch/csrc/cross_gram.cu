@@ -3,23 +3,50 @@
 //
 // Replaces vargp_tpu/ops/pallas/rbf_gram.py::_cross_gram_4d (body
 // _make_cross_gram_kernel, product _dot_nt_bf16x3).  The TPU kernel
-// emulated a bf16x3 product; this one is full f32, at least as accurate.
-// The output is written straight into the (H, O, M, B) layout the
-// predictive marginal consumes, as on the TPU.  The tile is rbf_tile.cuh.
+// emulated a bf16x3 product; this one runs the tensor-core tile of
+// rbf_mma.cuh in 3xTF32, f32 accuracy.  The output is written straight
+// into the (H, O, M, B) layout the predictive marginal consumes, as on the
+// TPU.  Grid: (column tile, row tile, h * O + o).
+//
+// The tile is K2's: 128 x 128 outputs, two blocks an SM; a 64 x 128 tile
+// (which pads A's 300 rows to 320, not 384) was slower at every shape the
+// paths give K4 (PERF.md, section 6).
 //
 // z (O, M, D), x (B, D), invs2 = exp(-2 log_ls) (H, D), gamma2 (H,)
 // -> out (H, O, M, B).
 
-#include "rbf_tile.cuh"
+#include "rbf_mma.cuh"
+
+namespace {
+
+using namespace rbf_mma;
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    cross_gram_kernel(const float* __restrict__ z, const float* __restrict__ x,
+                      const float* __restrict__ invs2, const float* __restrict__ gamma2,
+                      float* __restrict__ out, int O, int M, int B, int D, bool vec) {
+  extern __shared__ __align__(16) float smem[];
+  const int ho = blockIdx.z;
+  const int h = ho / O;
+  const int o = ho - h * O;
+  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
+  float acc[4][4][4];
+  accumulate<false>(z + ((size_t)o * M + row0) * D, M - row0, x + (size_t)col0 * D, B - col0,
+                    invs2 + (size_t)h * D, D, vec, smem, acc);
+  tile_values(smem, acc, gamma2[h], false);
+  store_tile(smem, out + ((size_t)ho * M + row0) * B + col0, B, M - row0, B - col0, false);
+}
+
+std::atomic<uint64_t> allowed{0};  // devices where the kernel's shared memory is allowed
+
+}  // namespace
 
 extern "C" int vargp_cross_gram(const float* z, const float* x,
                                 const float* invs2, const float* gamma2,
                                 float* out, int H, int O, int M, int B, int D,
                                 void* stream) {
-  const dim3 grid((B + vargp::kTileN - 1) / vargp::kTileN,
-                  (M + vargp::kTileM - 1) / vargp::kTileM, H * O);
-  vargp::rbf_tile_kernel<false>
-      <<<grid, vargp::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          z, x, invs2, gamma2, out, O, M, B, D);
-  return static_cast<int>(cudaGetLastError());
+  if (M == 0 || B == 0 || H * O == 0) return 0;
+  const dim3 grid((B + BN - 1) / BN, (M + BM - 1) / BM, H * O);
+  return launch(cross_gram_kernel, allowed, grid, static_cast<cudaStream_t>(stream), z, x, invs2,
+                gamma2, out, O, M, B, D, vec_rows(D, z, x, invs2));
 }

@@ -44,9 +44,9 @@ __global__ void __launch_bounds__(kThreads)
   const int col0 = blockIdx.x * kTileN;
 
   float acc[4][4];
-  vargp::rbf_tile_accumulate<false, true>(sx + (size_t)g * M * D,
-                                          sy + (size_t)g * N * D, nullptr, M,
-                                          N, D, row0, col0, sm, acc);
+  vargp::rbf_tile_accumulate<true>(sx + (size_t)g * M * D,
+                                   sy + (size_t)g * N * D, nullptr, M, N, D,
+                                   row0, col0, sm, acc);
 
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;

@@ -1,6 +1,6 @@
-// Fused ARD-RBF Gram tile shared by the symmetric Grams (sym_gram.cu,
-// sym_gram_tri.cu), the cross Gram (cross_gram.cu) and the generic Gram on
-// pre-scaled inputs (rbf_gram.cu):
+// Fused ARD-RBF Gram tile on the CUDA cores in f32, used now by K1, the
+// symmetric Gram (sym_gram.cu), and K5, the generic Gram on pre-scaled
+// inputs (rbf_gram.cu); K2 and K4 run the tensor-core tile of rbf_mma.cuh:
 //
 //   out[h, o, i, j] = gamma2[h] * exp(-0.5 * max(na_i + nb_j - 2 <a_i, b_j>, 0))
 //
@@ -9,15 +9,13 @@
 // ever written to device memory.  Two scaling conventions, both the ones
 // the JAX package's Pallas kernels use:
 //
-//   SYM  (K_zz):  rows a = z[o], cols b = z[o]; both sides scaled by
+//   scaled (K1, K_zz): rows a = z[o], cols b = z[o]; both sides scaled by
 //                 s = exp(-log_ls) (H, D); na_i = |s a_i|^2, nb_j = |s b_j|^2.
-//   !SYM (K_zx):  rows a = z[o] raw, cols b = x scaled by w = exp(-2 log_ls);
-//                 na_i = <a_i, w a_i>, nb_j = <b_j, w b_j>.
-//   PRESCALED:    rows a and cols b taken as they are (the caller scaled
+//   PRESCALED (K5): rows a and cols b taken as they are (the caller scaled
 //                 them); na_i = |a_i|^2, nb_j = |b_j|^2.  Both sides run the
 //                 same code, so with a == b the Gram is bitwise symmetric.
 //
-// In the SYM case every output element is computed by the same arithmetic
+// In the scaled case every output element is computed by the same arithmetic
 // as its mirror (same k order, commutative products, norms computed by the
 // same code), so the Gram is bitwise symmetric.
 //
@@ -52,9 +50,9 @@ struct TileSmem {
 // [col0, col0 + kTileN) of Bm into acc (thread (ty, tx) = (tid >> 4,
 // tid & 15) owns rows ty*4 .. ty*4+3 and cols tx*4 .. tx*4+3 of the tile),
 // and the rows' and cols' squared norms into sm.na / sm.nb.  Ends with a
-// barrier, so sm.na / sm.nb are readable by every thread.  s is not read
-// when PRESCALED.
-template <bool SYM, bool PRESCALED = false>
+// barrier, so sm.na / sm.nb are readable by every thread.  Both sides are
+// scaled by s (K1), or with PRESCALED taken as they are and s not read (K5).
+template <bool PRESCALED>
 __device__ __forceinline__ void rbf_tile_accumulate(
     const float* __restrict__ A, const float* __restrict__ Bm,
     const float* __restrict__ s, int M, int N, int D, int row0, int col0,
@@ -89,16 +87,11 @@ __device__ __forceinline__ void rbf_tile_accumulate(
         be = bv;
         na = fmaf(ae, ae, na);
         nb = fmaf(be, be, nb);
-      } else if (SYM) {
+      } else {
         ae = av * sk;
         be = bv * sk;
         na = fmaf(ae, ae, na);
         nb = fmaf(be, be, nb);
-      } else {
-        ae = av;
-        be = bv * sk;
-        na = fmaf(av, av * sk, na);
-        nb = fmaf(bv, be, nb);
       }
       sm.As[lk + q][lr] = ae;
       sm.Bs[lk + q][lr] = be;
@@ -138,44 +131,6 @@ __device__ __forceinline__ float rbf_tile_value(const TileSmem& sm,
   const int ty = threadIdx.x >> 4;
   const float d2 = fmaxf(sm.na[ty * 4 + i] + sm.nb[tx * 4 + j] - 2.f * acc[i][j], 0.f);
   return g2 * expf(-0.5f * d2);
-}
-
-template <bool SYM>
-__global__ void __launch_bounds__(kThreads) rbf_tile_kernel(
-    const float* __restrict__ a,       // (O, M, D)
-    const float* __restrict__ b,       // (N, D); ignored when SYM
-    const float* __restrict__ scale,   // (H, D): s (SYM) or w (!SYM)
-    const float* __restrict__ gamma2,  // (H,)
-    float* __restrict__ out,           // (H, O, M, N)
-    int O, int M, int N, int D) {
-  __shared__ TileSmem sm;
-
-  const int ho = blockIdx.z;
-  const int h = ho / O;
-  const int o = ho - h * O;
-  const int row0 = blockIdx.y * kTileM;
-  const int col0 = blockIdx.x * kTileN;
-
-  const float* A = a + (size_t)o * M * D;
-  float acc[4][4];
-  rbf_tile_accumulate<SYM>(A, SYM ? A : b, scale + (size_t)h * D, M, N, D,
-                           row0, col0, sm, acc);
-
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const float g2 = gamma2[h];
-  float* O_ = out + (size_t)ho * M * N;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty * 4 + i;
-    if (r >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + tx * 4 + j;
-      if (c >= N) continue;
-      O_[(size_t)r * N + c] = rbf_tile_value(sm, acc, g2, i, j);
-    }
-  }
 }
 
 }  // namespace vargp

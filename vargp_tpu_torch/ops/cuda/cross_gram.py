@@ -1,8 +1,10 @@
 """K4: fused-scaling ARD-RBF cross Gram (``csrc/cross_gram.cu``).
 
-Replaces ``vargp_tpu/ops/pallas/rbf_gram.py::_cross_gram_4d``.  A CUDA
-tensor launches the kernel; a CPU tensor takes :func:`cross_gram_plain`,
-the einsum body of ``_cross_gram_impl`` (``rbf_gram.py:477-482``).
+Replaces ``vargp_tpu/ops/pallas/rbf_gram.py::_cross_gram_4d``.  The kernel
+multiplies on the tensor cores in 3xTF32 (``csrc/rbf_mma.cuh``), f32
+accuracy.  A CUDA tensor launches the kernel; a CPU tensor takes
+:func:`cross_gram_plain`, the einsum body of ``_cross_gram_impl``
+(``rbf_gram.py:477-482``).
 """
 
 import torch

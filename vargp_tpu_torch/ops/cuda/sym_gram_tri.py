@@ -1,10 +1,12 @@
 """K2: triangle-skip symmetric ARD-RBF Gram (``csrc/sym_gram_tri.cu``).
 
 Replaces ``vargp_tpu/ops/pallas/rbf_gram.py::_sym_gram_4d_tri``.  The same
-function as K1 (:func:`sym_gram_plain`); the kernel computes only the
-lower tiles and mirrors them, and is the JAX package's choice for chains
-of S >= 512 rows.  A CUDA tensor launches the kernel; a CPU tensor takes
-the plain version.
+function as K1 (:func:`sym_gram_plain`), the JAX package's choice for
+chains of S >= 512 rows.  The kernel computes each lower tile once on the
+tensor cores in 3xTF32 (``csrc/rbf_mma.cuh``) and mirrors it: it agrees
+with K1 to f32 rounding, not bit for bit, and its output is bitwise
+symmetric.  A CUDA tensor launches the kernel; a CPU tensor takes the
+plain version.
 """
 
 import torch
