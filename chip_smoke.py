@@ -14,21 +14,27 @@ result) on a failure:
    Cholesky, K4 cross-Gram, K5 generic Gram on pre-scaled inputs, K6 fused
    Cholesky and triangular inverse, K7 batched Cholesky, K8 chunked
    diagonal-block Cholesky) held against its plain PyTorch version on the
-   card, at the shapes of the paths and at a ragged shape (K2 also at one
-   (h, o) of 1000 rows; K4 also at B's and the evaluation's shapes, at a
-   second ragged shape and at one (h, o); K3 also on
+   card, at the shapes of the paths and at a ragged shape, each launch
+   counted (K1 at A's, the evaluation's (H = 20) and P-MNIST's S = 500;
+   K2 also at one (h, o) of 1000 rows; K4 at A's, B's and the
+   evaluation's, at a second ragged shape and at one (h, o); K5 at C's
+   K_zz and K_zx and the evaluation's (G = 200), a ragged self-Gram and
+   cross Gram, both also from a base that is not 16-byte aligned, and a
+   self-Gram handed over as two tensors, which must take the cross
+   launch; K3 also on
    blocks 1, 33, 100, 125 and 128 wide read in place from matrices with
    row strides 300, 1000 and 875, at G = 200, and on the first diagonal
    blocks of A's, B's and the analysis's Grams as the paths hand them
    over: (30, 100, 100), (30, 125, 125), (200, 100, 100); K6 and K7 also at one
    panel, a one-row last panel and each cluster size their wrapper picks:
-   1, 4 and 8 blocks per matrix); K2 and K4 at B's shape also against a
-   float64 Gram, within twice the f32 plain version's error, beside a
-   1xTF32 control that must fail that limit, and K2's diagonal must be
-   gamma2 exactly; K1, K2 and K5's K_zz (sx == sy) must be
-   bitwise symmetric, K3, K6, K7 and K8 must give NaN on a non-positive
-   pivot where their plain versions do (K3 also in a 100-wide block), and
-   K6's L^-1 L must be the identity;
+   1, 4 and 8 blocks per matrix); K1 at A, K2 and K4 at B and K5's two
+   Grams at C also against a float64 Gram, within twice the f32 plain
+   version's error, beside a 1xTF32 control that must fail that limit;
+   K1, K2 and K5's self-Grams must be bitwise symmetric with gamma2
+   exactly on the diagonal, and K1 and K2 bitwise equal on the same
+   inputs at S = 300 and S = 1000; K3, K6, K7 and K8 must give NaN on a
+   non-positive pivot where their plain versions do (K3 also in a
+   100-wide block), and K6's L^-1 L must be the identity;
 4. the forward path: ``loss`` and ``predict`` of the flagship VAR-GP model
    (A, Split-MNIST task 4: a 5-task chain, M=60, 10 classes, D=784, B=512,
    3 hyper samples, 10 function samples; random weights from a numpy seed)
@@ -62,15 +68,17 @@ result) on a failure:
    a trace comes back with no device event, CUDA events with the host
    queued ahead of the card), and
    the kernel also with CUDA events around back-to-back calls (K3, K8,
-   K6 and K7 at A's and B's shapes, K2 at B's and K4 at A's, B's and the
-   evaluation's (H = 20), the last two with both bounds, 3xTF32 and f32,
-   and the effective TFLOP/s; all also cold: a 256 MB buffer
+   K6 and K7 at A's and B's shapes; the Grams at the shapes of
+   GRAM_SHAPES: K1 at A's, the evaluation's and P-MNIST's S = 500, K2 at
+   B's, K4 at A's, B's and the evaluation's, K5's K_zz and K_zx at C's and
+   the evaluation's, each with both bounds, 3xTF32 and f32, and the
+   effective TFLOP/s; all also cold: a 256 MB buffer
    written between calls, CUDA events around each; K3 also at the
    diagonal blocks of A's, B's and the analysis's factorisations and at
    G = 200, each beside ``torch.linalg.cholesky`` on the same view; K6
    beside the default blocked factorisation, K7 beside
    ``torch.linalg.cholesky``, all four at one panel);
-   K1 at B's shape beside K2; ``loss`` and ``predict`` end to end; the
+   ``loss`` and ``predict`` end to end; the
    forward, forward + backward and whole step of training at A, B and C,
    and the step under the solve and fused routes (CUDA events); the
    default step's kernel launches and device-busy time under
@@ -103,16 +111,18 @@ PMNIST_LAST = dict(n_tasks=10, M=100, O=10, D=784, B=512, H=3, n_f=10)
 # A split_mnist (padded 5-task chain), B permuted_mnist's final task (an
 # unpadded 10-task chain); n_rows is the train block's dataset, one epoch
 # C is split_mnist --dkl=True: A's chain and settings under the deep kernel.
+# launches: each counter's launches in one train step (rbf_gram_sym: K5's
+# symmetric kernel, counted also under rbf_gram).
 TRAIN = {
     "A": dict(shape=FLAGSHIP, lr=3e-3, beta=10.0, padded=True, n_rows=10000, dkl=False,
               launches={"sym_gram": 1, "sym_gram_tri": 0, "diag_chol": 3, "cross_gram": 1,
-                        "rbf_gram": 0}),
+                        "rbf_gram": 0, "rbf_gram_sym": 0}),
     "B": dict(shape=PMNIST_LAST, lr=3.7e-3, beta=1.64, padded=False, n_rows=2500, dkl=False,
               launches={"sym_gram": 0, "sym_gram_tri": 1, "diag_chol": 8, "cross_gram": 1,
-                        "rbf_gram": 0}),
+                        "rbf_gram": 0, "rbf_gram_sym": 0}),
     "C": dict(shape=FLAGSHIP, lr=3e-3, beta=10.0, padded=True, n_rows=10000, dkl=True,
               launches={"sym_gram": 0, "sym_gram_tri": 0, "diag_chol": 3, "cross_gram": 0,
-                        "rbf_gram": 2}),
+                        "rbf_gram": 2, "rbf_gram_sym": 1}),
 }
 # the chain-reload analysis at the notebooks' budgets
 ANALYSIS = dict(n_f=50, n_var_samples=20, batch_size=512, seed=5, replay_cell=(1, 0))
@@ -121,13 +131,25 @@ ANALYSIS = dict(n_f=50, n_var_samples=20, batch_size=512, seed=5, replay_cell=(1
 # and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-# K2, K4, K6 and K7 multiply on the tensor cores in 3xTF32: three TF32
-# products (495 TFLOP/s dense) per f32 product
+# The Grams (K1, K2, K4, K5), K6 and K7 multiply on the tensor cores in
+# 3xTF32: three TF32 products (495 TFLOP/s dense) per f32 product
 PEAK_TF32X3_FLOPS = 495e12 / 3
-# K2 and K4 at the shapes the paths give them, (H, O, S, B, D): K2 at B's
-# step (no B), K4 at A's and B's steps and at the evaluation's predict
-# (H = 20 hyper samples, A's 300-row chain, batches of 512)
+# The deep kernel's features: phi = 784-256-256-64
+DKL_FEATURES = 64
+# The Grams at the shapes the paths give them, (H, O, S, B, D): K1 at A's
+# step, at the evaluation's predict (H = 20 hyper samples, A's 300-row
+# chain) and at P-MNIST's task 5 (S = 500, the last chain below K2's 512
+# rows); K2 at B's step; K4 at A's and B's steps and the evaluation's
+# (batches of 512); K5 on the deep kernel's features at C's step and the
+# evaluation's, G = H * O Grams, K_zz (the self-Gram, B = 0) and K_zx.
 GRAM_SHAPES = {
+    "sym_gram": {
+        "A": (FLAGSHIP["H"], FLAGSHIP["O"], FLAGSHIP["n_tasks"] * FLAGSHIP["M"], 0, FLAGSHIP["D"]),
+        "eval": (ANALYSIS["n_var_samples"], FLAGSHIP["O"], FLAGSHIP["n_tasks"] * FLAGSHIP["M"], 0,
+                 FLAGSHIP["D"]),
+        "P-MNIST task 5": (PMNIST_LAST["H"], PMNIST_LAST["O"], 5 * PMNIST_LAST["M"], 0,
+                           PMNIST_LAST["D"]),
+    },
     "sym_gram_tri": {"B": (PMNIST_LAST["H"], PMNIST_LAST["O"],
                            PMNIST_LAST["n_tasks"] * PMNIST_LAST["M"], 0, PMNIST_LAST["D"])},
     "cross_gram": {
@@ -138,6 +160,16 @@ GRAM_SHAPES = {
         "eval": (ANALYSIS["n_var_samples"], FLAGSHIP["O"], FLAGSHIP["n_tasks"] * FLAGSHIP["M"],
                  ANALYSIS["batch_size"], FLAGSHIP["D"]),
     },
+    "rbf_gram": {
+        "C K_zz": (FLAGSHIP["H"], FLAGSHIP["O"], FLAGSHIP["n_tasks"] * FLAGSHIP["M"], 0,
+                   DKL_FEATURES),
+        "C K_zx": (FLAGSHIP["H"], FLAGSHIP["O"], FLAGSHIP["n_tasks"] * FLAGSHIP["M"], FLAGSHIP["B"],
+                   DKL_FEATURES),
+        "eval K_zz": (ANALYSIS["n_var_samples"], FLAGSHIP["O"], FLAGSHIP["n_tasks"] * FLAGSHIP["M"],
+                      0, DKL_FEATURES),
+        "eval K_zx": (ANALYSIS["n_var_samples"], FLAGSHIP["O"], FLAGSHIP["n_tasks"] * FLAGSHIP["M"],
+                      ANALYSIS["batch_size"], DKL_FEATURES),
+    },
 }
 
 # Tolerances, each against the plain version on the same card and inputs.
@@ -145,14 +177,15 @@ GRAM_SHAPES = {
 # D=784 products in different orders, so d2 differs by a few f32 ulps of
 # the squared norms (~1e-5 relative), which moves K by about that much.
 TOL_GRAM = 1e-4
-# K2 and K4 at B's shape against a float64 Gram on the card: within twice
-# the f32 plain version's max error against the same float64 Gram (as
-# tests/test_torch_gram_mma.py holds the emulated tile).  Both carry the
-# f32 rounding of na + nb - 2 <a, b>; a 3xTF32 product adds less than
-# that, a product that dropped its two cross terms (1xTF32) adds far more,
-# and the check holds such a control to failing the same limit.  K2 is
-# held off its diagonal, where it writes gamma2 exactly (d^2 = 0) and the
-# plain version's d^2 is rounding; there it must equal gamma2.
+# K1 at A, K2 and K4 at B and K5's two Grams at C against a float64 Gram
+# on the card: within twice the f32 plain version's max error against the
+# same float64 Gram (as tests/test_torch_gram_mma.py holds the emulated
+# tile).  Both carry the f32 rounding of na + nb - 2 <a, b>; a 3xTF32
+# product adds less than that, a product that dropped its two cross terms
+# (1xTF32) adds far more, and the check holds such a control to failing
+# the same limit.  The symmetric Grams are held off their diagonal, where
+# they write gamma2 exactly (d^2 = 0) and the plain version's d^2 is
+# rounding; there they must equal gamma2.
 F64_RATIO = 2.0
 # Cholesky of a well-conditioned block (eigenvalues >= 0.5): right-looking
 # column order in both, FMA rounding only in the kernel.
@@ -300,6 +333,14 @@ def sym_gram_1xtf32(z, invs, gamma2):
     return gamma2[:, None, None, None] * torch.exp(-0.5 * d2)
 
 
+def rbf_gram_1xtf32(sx, sy, gamma2):
+    """K5's function with the product in one TF32 term, as sym_gram_1xtf32."""
+    xx, yy = torch.sum(sx * sx, dim=-1), torch.sum(sy * sy, dim=-1)
+    xy = torch.einsum("gmd,gnd->gmn", tf32(sx), tf32(sy))
+    d2 = torch.clamp(xx[..., :, None] - 2.0 * xy + yy[..., None, :], min=0.0)
+    return gamma2[:, None, None] * torch.exp(-0.5 * d2)
+
+
 def cross_gram_1xtf32(z, x, invs2, gamma2):
     """K4's function with the product in one TF32 term, as sym_gram_1xtf32."""
     xs = x[None] * invs2[:, None, :]
@@ -359,6 +400,16 @@ def gram_inputs(rng, O, M, D, H, B, device):
     invs2 = t(np.exp(-2.0 * log_ls))
     gamma2 = t(np.exp(rng.standard_normal(H) * 0.2))
     return z, x, invs, invs2, gamma2
+
+
+def dkl_features(rng, G, S, B, F, device):
+    """K5's inputs: G Grams' chain features (G, S, F) and batch features
+    (G, B, F) ~ N(0, 1/(2F)), so squared distances lie near 1 and Gram
+    values are O(1), and gamma2 (G,) near 1."""
+    t = lambda a: torch.tensor(a.astype(np.float32), device=device)
+    sz = t(rng.standard_normal((G, S, F)) / math.sqrt(2 * F))
+    sx = t(rng.standard_normal((G, B, F)) / math.sqrt(2 * F))
+    return sz, sx, t(np.exp(rng.standard_normal(G) * 0.2))
 
 
 def spd_blocks(rng, G, device, S=128):
@@ -443,38 +494,63 @@ def flagship_model(device, seed=SEED, shape=FLAGSHIP, dkl=False):
 # ---------------------------------------------------------------------------
 
 
+def check_symmetric(label, K, ref, gamma2):
+    """A symmetric Gram's own checks: bitwise symmetric and gamma2 exactly
+    on the diagonal (K[g.., i, i] = gamma2[g]); prints the error against
+    the plain version ``ref`` on and off the diagonal.  Returns the
+    diagonal's mask."""
+    if not torch.equal(K, K.transpose(-1, -2)):
+        raise AssertionError(f"{label}: not exactly symmetric")
+    diag = K.diagonal(dim1=-2, dim2=-1)
+    if not torch.equal(diag, gamma2.reshape(*gamma2.shape, *[1] * (diag.dim() - 1)).expand_as(diag)):
+        raise AssertionError(f"{label}: the diagonal is not gamma2 exactly")
+    eye = torch.eye(K.shape[-1], dtype=torch.bool, device=K.device)
+    print(f"  {label}: bitwise symmetric, gamma2 on the diagonal; max abs err there "
+          f"{max_abs_err(diag, ref.diagonal(dim1=-2, dim2=-1)):.3e} (d^2 = 0 written, the plain "
+          f"version's d^2 is rounding), off it {max_abs_err(K[..., ~eye], ref[..., ~eye]):.3e}")
+    return eye
+
+
 def check_kernels(dev):
-    """K1 and K4 against their plain versions on the card: K1 at A's shape
-    and a ragged one (bitwise symmetric); K4 at each shape of GRAM_SHAPES
-    (A's, B's, the evaluation's), two ragged ones (D = 33: the 4-byte
-    copies; 77 rows, part of one row tile, and 333, the third tile
-    partial) and one (h, o) with a ragged last column tile, each launch
-    counted; at B's shape also against float64 (check_f64).  Returns the
-    largest error per kernel, A's inputs for timing K1 and K4's errors
-    against float64."""
+    """K1 and K4 against their plain versions on the card, each launch
+    counted: K1 at each shape of GRAM_SHAPES (A's, the evaluation's,
+    P-MNIST's S = 500) and a ragged one (D = 33: the 4-byte copies), each
+    bitwise symmetric with gamma2 on its diagonal, and at A equal to K2 bit
+    for bit on the same inputs and against float64 (check_f64) off the
+    diagonal; K4 at each shape of GRAM_SHAPES (A's, B's, the
+    evaluation's), two ragged ones (77 rows, part of one row tile, and
+    333, the third tile partial) and one (h, o) with a ragged last column
+    tile, at B's shape also against float64.  Returns the largest error
+    per kernel and K1's and K4's errors against float64."""
     from vargp_tpu_torch.ops.cuda.cross_gram import cross_gram, cross_gram_plain
     from vargp_tpu_torch.ops.cuda.sym_gram import sym_gram, sym_gram_plain
+    from vargp_tpu_torch.ops.cuda.sym_gram_tri import sym_gram_tri
 
-    f = FLAGSHIP
     rng = np.random.default_rng(SEED + 1)
     errs = {"sym_gram": 0.0, "cross_gram": 0.0}
-    flag = {}
-    for label, (O, M, D, H) in (
-        ("flagship", (f["O"], f["n_tasks"] * f["M"], f["D"], f["H"])),
-        ("ragged", (2, 77, 33, 2)),
-    ):
+    f64 = {}
+    k1_cases = {label: (O, S, D, H) for label, (H, O, S, _, D) in GRAM_SHAPES["sym_gram"].items()}
+    k1_cases["ragged"] = (2, 77, 33, 2)
+    for label, (O, M, D, H) in k1_cases.items():
         z, _, invs, _, gamma2 = gram_inputs(rng, O, M, D, H, 1, dev)
+        before = sym_gram.launches
         K = sym_gram(z, invs, gamma2)
         torch.cuda.synchronize()
+        if sym_gram.launches != before + 1:
+            raise AssertionError("K1's launch counter did not count its launch")
         ref = sym_gram_plain(z, invs, gamma2)
         e = max_abs_err(K, ref)
         check(f"K1 sym_gram {label} {tuple(K.shape)}", e, TOL_GRAM * float(gamma2.max()),
               float(ref.abs().max()))
-        if not torch.equal(K, K.transpose(-1, -2)):
-            raise AssertionError("K1 output is not exactly symmetric")
+        eye = check_symmetric(f"K1 {label}", K, ref, gamma2)
         errs["sym_gram"] = max(errs["sym_gram"], e)
-        if label == "flagship":
-            flag.update(z=z, invs=invs, gamma2=gamma2)
+        if label == "A":
+            if not torch.equal(K, sym_gram_tri(z, invs, gamma2)):
+                raise AssertionError("K1 and K2 differ on the same inputs at S = 300")
+            print(f"  K1 and K2 (forced) on A's inputs {tuple(K.shape)}: bitwise equal")
+            f64["sym_gram"] = check_f64("K1 sym_gram A, off the diagonal", K, sym_gram_plain,
+                                        sym_gram_1xtf32, (z, invs, gamma2), keep=~eye)
+        del K, ref
     k4_cases = {label: (O, S, D, H, B) for label, (H, O, S, B, D) in GRAM_SHAPES["cross_gram"].items()}
     k4_cases.update({"ragged": (2, 77, 33, 2, 45), "ragged, 3 row tiles": (2, 333, 33, 2, 45),
                      "H*O = 1": (1, 1000, 784, 1, 200)})
@@ -491,10 +567,10 @@ def check_kernels(dev):
               float(ref.abs().max()))
         errs["cross_gram"] = max(errs["cross_gram"], e)
         if label == "B":
-            f64 = check_f64(f"K4 cross_gram {label}", Kx, cross_gram_plain, cross_gram_1xtf32,
-                            (z, x, invs2, gamma2))
+            f64["cross_gram"] = check_f64(f"K4 cross_gram {label}", Kx, cross_gram_plain,
+                                          cross_gram_1xtf32, (z, x, invs2, gamma2))
         del Kx, ref
-    return errs, flag, f64
+    return errs, f64
 
 
 # K3's blocks as the default route hands them over: A's and C's 100-wide
@@ -561,15 +637,15 @@ def check_k2(dev):
     last 128-row tile holds 104 rows), a ragged one (D = 33: the 4-byte
     copies) and one (h, o) at S = 1000: within tolerance, bitwise
     symmetric, gamma2 exactly on the diagonal, one launch per call; at B's
-    shape also against float64 off the diagonal (check_f64).  Returns the
-    largest error, B's inputs for timing K1 at B's shape and the errors
-    against float64."""
+    shape also equal to K1 bit for bit on the same inputs and against
+    float64 off the diagonal (check_f64).  Returns the largest error and
+    the errors against float64."""
     from vargp_tpu_torch.ops.cuda.sym_gram import sym_gram, sym_gram_plain
     from vargp_tpu_torch.ops.cuda.sym_gram_tri import sym_gram_tri
 
     f = PMNIST_LAST
     rng = np.random.default_rng(SEED + 2)
-    err, flag = 0.0, {}
+    err = 0.0
     for label, (O, M, D, H) in (
         ("B", (f["O"], f["n_tasks"] * f["M"], f["D"], f["H"])),
         ("ragged", (3, 520, 33, 2)),
@@ -585,62 +661,71 @@ def check_k2(dev):
         e = max_abs_err(K, ref)
         check(f"K2 sym_gram_tri {label} {tuple(K.shape)}", e, TOL_GRAM * float(gamma2.max()),
               float(ref.abs().max()))
-        if not torch.equal(K, K.transpose(-1, -2)):
-            raise AssertionError("K2 output is not exactly symmetric")
-        eye = torch.eye(M, dtype=torch.bool, device=dev)
-        if not torch.equal(K[..., eye], gamma2[:, None, None].expand(H, O, M)):
-            raise AssertionError("K2's diagonal is not gamma2 exactly")
-        print(f"  K2 {label}: max abs err on the diagonal {max_abs_err(K[..., eye], ref[..., eye]):.3e} "
-              f"(K2 writes gamma2 there, d^2 = 0; the plain version's d^2 is rounding), off it "
-              f"{max_abs_err(K[..., ~eye], ref[..., ~eye]):.3e}")
-        K1 = sym_gram(z, invs, gamma2)
-        print(f"  K2 (3xTF32) against K1 (f32) on the same inputs: max abs difference "
-              f"{max_abs_err(K, K1):.3e}")
+        eye = check_symmetric(f"K2 {label}", K, ref, gamma2)
         err = max(err, e)
         if label == "B":
-            flag.update(z=z, invs=invs, gamma2=gamma2)
+            if not torch.equal(K, sym_gram(z, invs, gamma2)):
+                raise AssertionError("K1 and K2 differ on the same inputs at S = 1000")
+            print(f"  K1 (forced) and K2 on B's inputs {tuple(K.shape)}: bitwise equal")
             f64 = check_f64(f"K2 sym_gram_tri {label}, off the diagonal", K, sym_gram_plain,
                             sym_gram_1xtf32, (z, invs, gamma2), keep=~eye)
-    return err, flag, f64
+    return err, f64
 
 
 def check_k5(dev):
-    """K5 against its plain version on the card at C's two shapes (K_zz:
-    sx == sy, G = H*O = 30, 300 rows of 64 features; K_zx: against 512
-    rows) and at a ragged one; K_zz must be bitwise symmetric.  Returns the
-    largest error and C's inputs for timing."""
+    """K5 against its plain version on the card, each launch counted and
+    its kernel told by the counters: C's K_zz (sx is sy: the symmetric
+    launch; G = H*O = 30, 300 rows of 64 features) and K_zx (against 512
+    rows), the evaluation's pair (G = 200), a ragged cross Gram (37 x 70)
+    and a ragged self-Gram (37 rows), each also from a base that is not 16
+    bytes aligned (the 4-byte copies).  Every self-Gram is bitwise
+    symmetric with gamma2 on its diagonal; the same values handed over as
+    two tensors take the cross launch.  At C both Grams also against
+    float64 (check_f64, K_zz off the diagonal).  Returns the largest error
+    and the errors against float64."""
     from vargp_tpu_torch.ops.cuda.rbf_gram import rbf_gram, rbf_gram_plain
 
-    f = FLAGSHIP
-    G, S, B, F = f["H"] * f["O"], f["n_tasks"] * f["M"], f["B"], 64
     rng = np.random.default_rng(SEED + 4)
-    t = lambda a: torch.tensor(a.astype(np.float32), device=dev)
-    # features ~ N(0, 1/(2F)): squared distances near 1, Gram values O(1)
-    sz = t(rng.standard_normal((G, S, F)) / math.sqrt(2 * F))
-    sx = t(rng.standard_normal((G, B, F)) / math.sqrt(2 * F))
-    g2 = t(np.exp(rng.standard_normal(G) * 0.2))
-    err, flag = 0.0, dict(sz=sz, sx=sx, g2=g2)
-    for label, a, b, g in (
-        ("C K_zz", sz, sz, g2), ("C K_zx", sz, sx, g2),
-        ("ragged", t(rng.standard_normal((3, 37, F)) * 0.1), t(rng.standard_normal((3, 70, F)) * 0.1),
-         g2[:3]),
-    ):
-        before = rbf_gram.launches
+
+    def unaligned(t):
+        """t's values in a tensor whose base lies 4 bytes past a 16-byte boundary."""
+        out = torch.empty(t.numel() + 1, device=t.device)[1:].view(t.shape)
+        return out.copy_(t)
+
+    cases = {}
+    for label, (H, O, S, B, F) in GRAM_SHAPES["rbf_gram"].items():
+        if B == 0:  # K_zz and K_zx of one G from one draw of features
+            sz, sx, g2 = dkl_features(rng, H * O, S, ANALYSIS["batch_size"], F, dev)
+            where = label.split()[0]
+            cases[f"{where} K_zz"], cases[f"{where} K_zx"] = (sz, sz, g2), (sz, sx, g2)
+    rz, rx, rg = dkl_features(rng, 3, 37, 70, DKL_FEATURES, dev)
+    uz = unaligned(rz)
+    cases.update({"ragged cross": (rz, rx, rg), "ragged self": (rz, rz, rg),
+                  "ragged cross, unaligned": (uz, rx, rg), "ragged self, unaligned": (uz, uz, rg),
+                  "ragged self as two tensors": (rz, rz.clone(), rg)})
+    err, f64 = 0.0, {}
+    for label, (a, b, g) in cases.items():
+        sym = a is b
+        before, before_sym = rbf_gram.launches, rbf_gram.sym_launches
         K = rbf_gram(a, b, g)
         torch.cuda.synchronize()
-        if rbf_gram.launches != before + 1:
-            raise AssertionError("K5's launch counter did not count its launch")
+        if (rbf_gram.launches, rbf_gram.sym_launches) != (before + 1, before_sym + int(sym)):
+            raise AssertionError(f"K5 {label}: the wrong launch (symmetric expected: {sym})")
         ref = rbf_gram_plain(a, b, g)
         e = max_abs_err(K, ref)
-        check(f"K5 rbf_gram {label} {tuple(K.shape)}", e, TOL_GRAM * float(g.max()),
-              float(ref.abs().max()))
-        if a is b:
-            asym = max_abs_err(K, K.transpose(-1, -2))
-            print(f"  K5 K_zz symmetry: max |K - K^T| = {asym!r} (bitwise symmetric: {asym == 0.0})")
-            if asym != 0.0:
-                raise AssertionError("K5's K_zz (sx == sy) is not exactly symmetric")
+        check(f"K5 rbf_gram {label} {tuple(K.shape)} ({'symmetric' if sym else 'cross'} launch)",
+              e, TOL_GRAM * float(g.max()), float(ref.abs().max()))
+        eye = check_symmetric(f"K5 {label}", K, ref, g) if sym else None
+        if label == "ragged self as two tensors":
+            print(f"  K5 {label}: max |K - K^T| {max_abs_err(K, K.transpose(-1, -2))!r} "
+                  f"(the cross kernel: symmetric to rounding only)")
         err = max(err, e)
-    return err, flag
+        if label.startswith("C "):
+            f64[label[2:]] = check_f64(
+                f"K5 rbf_gram {label}{', off the diagonal' if sym else ''}", K, rbf_gram_plain,
+                rbf_gram_1xtf32, (a, b, g), keep=None if eye is None else ~eye)
+        del K, ref
+    return err, f64
 
 
 def check_nan_pivot(label, fn, plain, S, bad, G=2):
@@ -771,10 +856,17 @@ def route_env(route: str):
                 os.environ[k] = v
 
 
+def counters() -> dict:
+    """Every launch counter: counter name -> (wrapper, attribute); each
+    wrapper's ``launches``, and K5's symmetric kernel's as rbf_gram_sym."""
+    return {**{n: (w, "launches") for n, w in wrappers().items()},
+            "rbf_gram_sym": (wrappers()["rbf_gram"], "sym_launches")}
+
+
 def expected_launches(name: str, route: str = "default") -> dict:
-    """Every wrapper's launches in one train step of configuration ``name``
+    """Every counter's launches in one train step of configuration ``name``
     under ``route``: the factorisation's kernels change, the Grams' stay."""
-    want = {k: 0 for k in KERNELS}
+    want = {k: 0 for k in counters()}
     want.update(TRAIN[name]["launches"])
     if route == "solve":
         want.update(diag_chol=0, cholesky=1)
@@ -784,12 +876,12 @@ def expected_launches(name: str, route: str = "default") -> dict:
 
 
 def reset_counts():
-    for w in wrappers().values():
-        w.launches = 0
+    for w, attr in counters().values():
+        setattr(w, attr, 0)
 
 
 def read_counts():
-    return {n: w.launches for n, w in wrappers().items()}
+    return {n: getattr(w, attr) for n, (w, attr) in counters().items()}
 
 
 def run_slice(device, name="A", route="default"):
@@ -892,8 +984,8 @@ def check_analysis(dev):
         raise AssertionError("analysis: matrices of the wrong shape or not finite")
     if acc.min() < 0 or acc.max() > 1 or ent.min() < 0 or ent.max() > 1 + 1e-6:
         raise AssertionError("analysis: accuracy or normalised entropy outside [0, 1]")
-    want = {k: 0 for k in KERNELS}
-    want.update(rbf_gram=2 * n_batches, diag_chol=3 * n_batches)
+    want = {k: 0 for k in counters()}
+    want.update(rbf_gram=2 * n_batches, rbf_gram_sym=n_batches, diag_chol=3 * n_batches)
     if launches != want:
         raise AssertionError(f"analysis: launches {launches}, expected {want}")
 
@@ -1125,21 +1217,37 @@ def fmt_times(t: dict) -> str:
 
 
 def gram_case(n, H, O, S, B, D, rng, dev) -> dict:
-    """K2 (``n`` = sym_gram_tri) or K4 at one shape, as kernel_times takes
-    it: the kernel, its plain version and the yardstick (``cdist`` + ``exp``
-    on inputs scaled beforehand), the operations (K2: its S(S+1)/2 distinct
-    entries) and bytes (inputs read once, the output written once), at the
-    3xTF32 rate the kernels multiply at."""
+    """Gram kernel ``n`` (sym_gram K1, sym_gram_tri K2, cross_gram K4 or
+    rbf_gram K5) at one shape of GRAM_SHAPES, as kernel_times takes it: the
+    kernel, its plain version and the yardstick (``cdist`` + ``exp`` on
+    inputs scaled beforehand), the operations (a symmetric Gram's S(S+1)/2
+    distinct entries) and bytes (inputs read once, the output written
+    once), at the 3xTF32 rate the kernels multiply at.  K5 takes G = H * O
+    Grams of features (K_zz when B = 0, its input read once)."""
     from vargp_tpu_torch.ops.cuda.cross_gram import cross_gram, cross_gram_plain
-    from vargp_tpu_torch.ops.cuda.sym_gram import sym_gram_plain
+    from vargp_tpu_torch.ops.cuda.rbf_gram import rbf_gram, rbf_gram_plain
+    from vargp_tpu_torch.ops.cuda.sym_gram import sym_gram, sym_gram_plain
     from vargp_tpu_torch.ops.cuda.sym_gram_tri import sym_gram_tri
 
+    if n == "rbf_gram":
+        G = H * O
+        sz, sx, g2 = dkl_features(rng, G, S, max(B, 1), D, dev)
+        g3 = g2[:, None, None]
+        other, N = (sz, S) if B == 0 else (sx, B)
+        inputs = G * S * D if B == 0 else G * (S + B) * D
+        return dict(
+            shape=[G, S, N, D], fn=lambda: rbf_gram(sz, other, g2),
+            plain=lambda: rbf_gram_plain(sz, other, g2),
+            library=lambda: g3 * torch.exp(-0.5 * torch.cdist(sz, other).square()),
+            flops=1.0 * G * S * (S + 1) * D if B == 0 else 2.0 * G * S * B * D,
+            nbytes=4.0 * (inputs + G + G * S * N), peak=PEAK_TF32X3_FLOPS)
     z, x, invs, invs2, gamma2 = gram_inputs(rng, O, S, D, H, max(B, 1), dev)
     g4 = gamma2[:, None, None, None]
-    if n == "sym_gram_tri":
+    if n in ("sym_gram", "sym_gram_tri"):
+        kernel = sym_gram if n == "sym_gram" else sym_gram_tri
         sz = (z[None] * invs[:, None, None, :]).reshape(H * O, S, D)
         return dict(
-            shape=[H, O, S, D], fn=lambda: sym_gram_tri(z, invs, gamma2),
+            shape=[H, O, S, D], fn=lambda: kernel(z, invs, gamma2),
             plain=lambda: sym_gram_plain(z, invs, gamma2),
             library=lambda: g4 * torch.exp(-0.5 * torch.cdist(sz, sz).square().view(H, O, S, S)),
             flops=1.0 * H * O * S * (S + 1) * D,
@@ -1220,8 +1328,6 @@ def main() -> int:
     import vargp_tpu_torch  # noqa: F401  (sets the TF32 flags)
     from vargp_tpu_torch.ops.cuda import build
     from vargp_tpu_torch.ops.cuda.diag_chol import diag_chol, diag_chol_plain
-    from vargp_tpu_torch.ops.cuda.rbf_gram import rbf_gram, rbf_gram_plain
-    from vargp_tpu_torch.ops.cuda.sym_gram import sym_gram, sym_gram_plain
 
     t0 = time.perf_counter()
     build.library()
@@ -1229,11 +1335,10 @@ def main() -> int:
 
     dev = torch.device("cuda")
     print("kernels against their plain versions on the card:")
-    errs, flag, f64_k4 = check_kernels(dev)
+    errs, f64 = check_kernels(dev)
     errs["diag_chol"], flag_k3 = check_k3(dev)
-    errs["sym_gram_tri"], flag_b, f64_k2 = check_k2(dev)
-    f64 = {"sym_gram_tri": f64_k2, "cross_gram": f64_k4}
-    errs["rbf_gram"], flag_c = check_k5(dev)
+    errs["sym_gram_tri"], f64["sym_gram_tri"] = check_k2(dev)
+    errs["rbf_gram"], f64["rbf_gram"] = check_k5(dev)
     errs_chol, flag_chol, clusters = check_chol_kernels(dev)
     errs.update(errs_chol)
     # K3's timing shapes: the first diagonal block of A's (and C's) and of
@@ -1272,11 +1377,8 @@ def main() -> int:
     analysis = check_analysis(dev)
 
     print("timings (ms per call):")
-    z, invs, gamma2 = (flag[k] for k in ("z", "invs", "gamma2"))
     spd = flag_k3["(30, 128, 128)"]
-    H, (O, S, D), G = invs.shape[0], z.shape, spd.shape[0]
-    sz = (z[None] * invs[:, None, None, :]).reshape(H * O, S, D)
-    g4 = gamma2[:, None, None, None]
+    G = spd.shape[0]
     grams = gram_cases(dev)
     # Each entry's cases are the shapes it is timed at (kernel_times'
     # arguments); the row holds the first case's numbers, the others nested
@@ -1284,13 +1386,7 @@ def main() -> int:
     entries = [
         dict(
             name="sym_gram", route="cuda", source="vargp_tpu_torch/csrc/sym_gram.cu",
-            replaces="vargp_tpu/ops/pallas/rbf_gram.py:305",
-            cases={"A": dict(
-                fn=lambda: sym_gram(z, invs, gamma2), plain=lambda: sym_gram_plain(z, invs, gamma2),
-                library=lambda: g4 * torch.exp(-0.5 * torch.cdist(sz, sz).square().view(H, O, S, S)),
-                # the Gram is symmetric: S(S+1)/2 distinct entries per (h, o), 2D each
-                flops=1.0 * H * O * S * (S + 1) * D,
-                nbytes=4.0 * (O * S * D + 2 * H * D + H + H * O * S * S))},
+            replaces="vargp_tpu/ops/pallas/rbf_gram.py:305", cases=grams["sym_gram"],
         ),
         dict(
             name="sym_gram_tri", route="cuda", source="vargp_tpu_torch/csrc/sym_gram_tri.cu",
@@ -1309,30 +1405,11 @@ def main() -> int:
             name="cross_gram", route="cuda", source="vargp_tpu_torch/csrc/cross_gram.cu",
             replaces="vargp_tpu/ops/pallas/rbf_gram.py:420", cases=grams["cross_gram"],
         ),
+        dict(  # its row holds C's K_zz (the symmetric launch)
+            name="rbf_gram", route="cuda", source="vargp_tpu_torch/csrc/rbf_gram.cu",
+            replaces="vargp_tpu/ops/pallas/rbf_gram.py:47", cases=grams["rbf_gram"],
+        ),
     ]
-    zb, invsb, g2b = (flag_b[k] for k in ("z", "invs", "gamma2"))
-    # K5: the two Grams of a C step, K_zz (sx is sy: S(S+1)/2 distinct
-    # entries, sx read once) and K_zx, timed and bounded together
-    sc, xc, g2c = (flag_c[k] for k in ("sz", "sx", "g2"))
-    Gc, Sc, Fc = sc.shape
-    Bc = xc.shape[1]
-    g3c = g2c[:, None, None]
-    k5 = {
-        "K_zz": (lambda: rbf_gram(sc, sc, g2c), lambda: rbf_gram_plain(sc, sc, g2c),
-                 lambda: g3c * torch.exp(-0.5 * torch.cdist(sc, sc).square())),
-        "K_zx": (lambda: rbf_gram(sc, xc, g2c), lambda: rbf_gram_plain(sc, xc, g2c),
-                 lambda: g3c * torch.exp(-0.5 * torch.cdist(sc, xc).square())),
-    }
-    entries.append(dict(
-        name="rbf_gram", route="cuda", source="vargp_tpu_torch/csrc/rbf_gram.cu",
-        replaces="vargp_tpu/ops/pallas/rbf_gram.py:47",
-        cases={"C": dict(
-            fn=lambda: [f[0]() for f in k5.values()], plain=lambda: [f[1]() for f in k5.values()],
-            library=lambda: [f[2]() for f in k5.values()], one_kernel=False,  # both Grams
-            flops=1.0 * Gc * Sc * (Sc + 1) * Fc + 2.0 * Gc * Sc * Bc * Fc,
-            nbytes=4.0 * (Gc * Sc * Fc + Gc + Gc * Sc * Sc)
-            + 4.0 * (Gc * Sc * Fc + Gc * Bc * Fc + Gc + Gc * Sc * Bc))},
-    ))
     # K8, K7 and K6: the lower triangle read once, each factor written
     # whole; K7 S^3/3 FMAs' worth of operations, K6 twice that (the
     # factor and the inverse)
@@ -1374,9 +1451,6 @@ def main() -> int:
                 library=functools.partial(lib, flag_chol[cfg_name]),
                 **chol_work(flag_chol[cfg_name], n_out, n_f)) for cfg_name in ("A", "B")},
         ))
-    for label, (fn, plain, lib) in k5.items():
-        print(f"  rbf_gram (K5) {label} alone, device time: kernel {device_ms(fn):.4f}  plain "
-              f"{device_ms(plain, reps=5, warmup=1):.4f}  yardstick {device_ms(lib):.4f}")
     kernels = []
     # ms, plain_ms, library_ms: device time per call (device_ms); event_ms:
     # CUDA events around back-to-back calls, the wrapper's host time included.
@@ -1404,8 +1478,10 @@ def main() -> int:
             "launches": sum(per_step.values()), "launches_per_step": per_step, "path": path,
             "max_abs_err": errs[n], **t, **{f"at_{lb}": times[lb] for lb in rest},
         })
-        if n in f64:  # K2 and K4 against float64
+        if n in f64:  # the Grams against float64
             kernels[-1]["f64"] = f64[n]
+        if n == "rbf_gram":  # K5's symmetric launches (K_zz), among its launches
+            kernels[-1]["sym_launches_per_step"] = {k: v["rbf_gram_sym"] for k, v in steps.items()}
         if n in ("diag_chol", "diag_chol_chunked"):  # K3 and K8 against the library by events too
             lib_event_ms = time_ms(e["cases"][first]["library"])
             kernels[-1]["library_event_ms"] = lib_event_ms
@@ -1438,8 +1514,6 @@ def main() -> int:
           f"CUDA events, the host queued ahead: K7 {queued_ms(lambda: cholesky(K)):.4f}  "
           f"K6 {queued_ms(lambda: chol_inv(K)):.4f}  K8 {queued_ms(lambda: diag_chol_chunked(K)):.4f}  "
           f"K3 {queued_ms(lambda: diag_chol(K)):.4f}")
-    print(f"  sym_gram (K1) at B's shape {tuple(zb.shape)}, H = {invsb.shape[0]}: "
-          f"{time_ms(lambda: sym_gram(zb, invsb, g2b)):.4f}")
 
     from vargp_tpu_torch.models import vargp as V
 

@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""K2 and K4 on one card at the shapes the paths give them.
+"""The Gram kernels (K1, K2, K4, K5) on one card at the shapes the paths
+give them.
 
     python3 scripts/time_grams.py [--root DIR]
 
-Times ``chip_smoke.gram_cases`` (K2 at B's step; K4 at A's and B's steps
-and at the evaluation's predict, H = 20) with ``chip_smoke.kernel_times``,
-as the smoke times every kernel: each kernel's device time, its time by
-CUDA events and cold, its plain version's and the yardstick's (``cdist`` +
+Times ``chip_smoke.gram_cases`` (``chip_smoke.GRAM_SHAPES``: K1 at A's
+step, the evaluation's predict (H = 20) and P-MNIST's S = 500; K2 at B's
+step; K4 at A's and B's steps and the evaluation's; K5's K_zz and K_zx at
+C's step and the evaluation's) with ``chip_smoke.kernel_times``, as the
+smoke times every kernel: each kernel's device time, its time by CUDA
+events and cold, its plain version's and the yardstick's (``cdist`` +
 ``exp``), the bounds at the 3xTF32 and f32 rates and the effective
-TFLOP/s.  ``--root`` names the tree whose ``vargp_tpu_torch`` is
-timed (default: this one), so that an unpacked ``git archive`` of another
-commit is timed by the same code, in the same call, on the same card.  The
-last lines are the card's name and power limit and one JSON object.
+TFLOP/s.  ``--root`` names the tree whose ``vargp_tpu_torch`` is timed
+(default: this one), so that an unpacked ``git archive`` of another commit
+is timed by the same code, in the same call, on the same card.  The last
+lines are the card's name and power limit and one JSON object.
 """
 
 import argparse

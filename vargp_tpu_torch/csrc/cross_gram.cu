@@ -8,9 +8,9 @@
 // into the (H, O, M, B) layout the predictive marginal consumes, as on the
 // TPU.  Grid: (column tile, row tile, h * O + o).
 //
-// The tile is K2's: 128 x 128 outputs, two blocks an SM; a 64 x 128 tile
-// (which pads A's 300 rows to 320, not 384) was slower at every shape the
-// paths give K4 (PERF.md, section 6).
+// The tile is K2's, Tile128: 128 x 128 outputs, two blocks an SM; a
+// 64 x 128 tile (which pads A's 300 rows to 320, not 384) and K1's 64 x 64
+// were slower at every shape the paths give K4 (PERF.md, section 6).
 //
 // z (O, M, D), x (B, D), invs2 = exp(-2 log_ls) (H, D), gamma2 (H,)
 // -> out (H, O, M, B).
@@ -19,9 +19,10 @@
 
 namespace {
 
-using namespace rbf_mma;
+using rbf_mma::Mode;
+using Tile = rbf_mma::Tile128;
 
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(Tile::kThreads, Tile::kMinBlocks)
     cross_gram_kernel(const float* __restrict__ z, const float* __restrict__ x,
                       const float* __restrict__ invs2, const float* __restrict__ gamma2,
                       float* __restrict__ out, int O, int M, int B, int D, bool vec) {
@@ -29,12 +30,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int ho = blockIdx.z;
   const int h = ho / O;
   const int o = ho - h * O;
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
+  const int row0 = blockIdx.y * Tile::BM, col0 = blockIdx.x * Tile::BN;
   float acc[4][4][4];
-  accumulate<false>(z + ((size_t)o * M + row0) * D, M - row0, x + (size_t)col0 * D, B - col0,
-                    invs2 + (size_t)h * D, D, vec, smem, acc);
-  tile_values(smem, acc, gamma2[h], false);
-  store_tile(smem, out + ((size_t)ho * M + row0) * B + col0, B, M - row0, B - col0, false);
+  Tile::accumulate<Mode::kCross>(z + ((size_t)o * M + row0) * D, M - row0, x + (size_t)col0 * D,
+                                 B - col0, invs2 + (size_t)h * D, D, vec, smem, acc);
+  Tile::tile_values(smem, acc, gamma2[h], false);
+  Tile::store_tile(smem, out + ((size_t)ho * M + row0) * B + col0, B, M - row0, B - col0, false);
 }
 
 std::atomic<uint64_t> allowed{0};  // devices where the kernel's shared memory is allowed
@@ -46,7 +47,7 @@ extern "C" int vargp_cross_gram(const float* z, const float* x,
                                 float* out, int H, int O, int M, int B, int D,
                                 void* stream) {
   if (M == 0 || B == 0 || H * O == 0) return 0;
-  const dim3 grid((B + BN - 1) / BN, (M + BM - 1) / BM, H * O);
-  return launch(cross_gram_kernel, allowed, grid, static_cast<cudaStream_t>(stream), z, x, invs2,
-                gamma2, out, O, M, B, D, vec_rows(D, z, x, invs2));
+  const dim3 grid((B + Tile::BN - 1) / Tile::BN, (M + Tile::BM - 1) / Tile::BM, H * O);
+  return Tile::launch(cross_gram_kernel, allowed, grid, static_cast<cudaStream_t>(stream), z, x,
+                      invs2, gamma2, out, O, M, B, D, rbf_mma::vec_rows(D, z, x, invs2));
 }

@@ -6,72 +6,82 @@
 // _make_gram_kernel, entered through rbf_gram_pallas).  The TPU kernel
 // zero-padded M and N to 128 and D to a lane multiple and ran one
 // 128x128 output block per grid step with whole feature rows in VMEM.
-// Here each block computes one 64x64 output tile of one batch element
-// (blockIdx.z = g) with the tile of rbf_tile.cuh in its PRESCALED mode:
-// feature chunks of 16 staged in shared memory, a 4x4 register block per
-// thread, the squared norms accumulated by the staging threads, gamma2 *
-// exp fused into the epilogue.  Ragged M and N are masked at load and
-// store; nothing is padded in device memory.
+// Here both kernels run the tensor-core tile of rbf_mma.cuh (Tile128,
+// 3xTF32, f32 accuracy) in its kPrescaled mode: no scale, the norms
+// |a|^2 and |b|^2 from the staged values.  Ragged M and N are masked at
+// load and store; nothing is padded in device memory.  Tile64 (K1's) was
+// slower here (PERF.md, section 6).
 //
-// Both operands run the same staging and norm code, so when sx and sy
-// hold the same values (the deep kernel's K_zz, sx == sy) every element
-// equals its mirror bit for bit and the Gram is exactly symmetric, as the
-// factorisation downstream expects.
+//   rbf_gram_kernel (vargp_rbf_gram): sx against sy on the (column tile,
+//     row tile, g) grid, as K4.
+//   rbf_gram_sym_kernel (vargp_rbf_gram_sym): the self-Gram of sx (the
+//     deep kernel's K_zz) on the mirrored pair grid (pair, g), as K2: each
+//     distinct entry computed once and mirrored, the diagonal gamma2
+//     exactly.
 //
-// What bounds it on an H100: the f32 FMAs, 2 G M N D operations against
-// 4 (G M D + G N D + G M N) bytes; at the deep kernel's D = 64 the output
-// write is of the same order.  Full f32 on the CUDA cores, as the
-// TPU's "highest" product.
+// Only the symmetric kernel gives a bitwise symmetric Gram.  The cross
+// kernel computes (i, j) and (j, i) as two products whose cross terms
+// trade places, so equal values handed over as two tensors give a Gram
+// that is symmetric only to rounding; the wrapper (ops/cuda/rbf_gram.py)
+// takes the symmetric kernel when sx and sy are the same storage.
+//
+// What bounds it on an H100: at the deep kernel's D = 64, the bytes.  C's
+// K_zx (30 x 300 x 512) writes 18.4 MB for 0.59 GFLOP: 0.0055 ms of
+// output at 3.35 TB/s against 0.0036 ms of 3xTF32 products.  With 4
+// chunks of 16 features, a block's life is mostly its ring's prologue and
+// its epilogue, which stores a warp's 32 consecutive floats at a time.
 //
 // sx (G, M, D), sy (G, N, D), gamma2 (G,) -> out (G, M, N).
 
-#include "rbf_tile.cuh"
+#include "rbf_mma.cuh"
 
 namespace {
 
-using vargp::kThreads;
-using vargp::kTileM;
-using vargp::kTileN;
+using rbf_mma::Mode;
+using Tile = rbf_mma::Tile128;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Tile::kThreads, Tile::kMinBlocks)
     rbf_gram_kernel(const float* __restrict__ sx, const float* __restrict__ sy,
-                    const float* __restrict__ gamma2, float* __restrict__ out,
-                    int M, int N, int D) {
-  __shared__ vargp::TileSmem sm;
-
+                    const float* __restrict__ gamma2, float* __restrict__ out, int M, int N,
+                    int D, bool vec) {
+  extern __shared__ __align__(16) float smem[];
   const int g = blockIdx.z;
-  const int row0 = blockIdx.y * kTileM;
-  const int col0 = blockIdx.x * kTileN;
-
-  float acc[4][4];
-  vargp::rbf_tile_accumulate<true>(sx + (size_t)g * M * D,
-                                   sy + (size_t)g * N * D, nullptr, M, N, D,
-                                   row0, col0, sm, acc);
-
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const float g2 = gamma2[g];
-  float* O_ = out + (size_t)g * M * N;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty * 4 + i;
-    if (r >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + tx * 4 + j;
-      if (c >= N) continue;
-      O_[(size_t)r * N + c] = vargp::rbf_tile_value(sm, acc, g2, i, j);
-    }
-  }
+  const int row0 = blockIdx.y * Tile::BM, col0 = blockIdx.x * Tile::BN;
+  float acc[4][4][4];
+  Tile::accumulate<Mode::kPrescaled>(sx + ((size_t)g * M + row0) * D, M - row0,
+                                     sy + ((size_t)g * N + col0) * D, N - col0, nullptr, D, vec,
+                                     smem, acc);
+  Tile::tile_values(smem, acc, gamma2[g], false);
+  Tile::store_tile(smem, out + ((size_t)g * M + row0) * N + col0, N, M - row0, N - col0, false);
 }
+
+__global__ void __launch_bounds__(Tile::kThreads, Tile::kMinBlocks)
+    rbf_gram_sym_kernel(const float* __restrict__ sx, const float* __restrict__ gamma2,
+                        float* __restrict__ out, int M, int D, bool vec) {
+  extern __shared__ __align__(16) float smem[];
+  const int g = blockIdx.y;
+  Tile::sym_pair<Mode::kPrescaled>(sx + (size_t)g * M * D, nullptr, gamma2[g],
+                                   out + (size_t)g * M * M, M, D, vec, smem);
+}
+
+// devices where each kernel's shared memory is allowed
+std::atomic<uint64_t> allowed{0}, allowed_sym{0};
 
 }  // namespace
 
-extern "C" int vargp_rbf_gram(const float* sx, const float* sy,
-                              const float* gamma2, float* out, int G, int M,
-                              int N, int D, void* stream) {
-  const dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM, G);
-  rbf_gram_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      sx, sy, gamma2, out, M, N, D);
-  return static_cast<int>(cudaGetLastError());
+extern "C" int vargp_rbf_gram(const float* sx, const float* sy, const float* gamma2, float* out,
+                              int G, int M, int N, int D, void* stream) {
+  if (M == 0 || N == 0 || G == 0) return 0;
+  const dim3 grid((N + Tile::BN - 1) / Tile::BN, (M + Tile::BM - 1) / Tile::BM, G);
+  return Tile::launch(rbf_gram_kernel, allowed, grid, static_cast<cudaStream_t>(stream), sx, sy,
+                      gamma2, out, M, N, D, rbf_mma::vec_rows(D, sx, sy, nullptr));
+}
+
+extern "C" int vargp_rbf_gram_sym(const float* sx, const float* gamma2, float* out, int G, int M,
+                                  int D, void* stream) {
+  if (M == 0 || G == 0) return 0;
+  const int T = (M + Tile::BM - 1) / Tile::BM;
+  const dim3 grid(T * (T + 1) / 2, G);
+  return Tile::launch(rbf_gram_sym_kernel, allowed_sym, grid, static_cast<cudaStream_t>(stream),
+                      sx, gamma2, out, M, D, rbf_mma::vec_rows(D, sx, sx, nullptr));
 }

@@ -1,63 +1,54 @@
-// K1: symmetric fused-scaling ARD-RBF Gram, K_zz of the inducing chain.
+// K1: symmetric fused-scaling ARD-RBF Gram, K_zz of an inducing chain of
+// fewer than 512 rows (the JAX package's gate; K2 from 512 up).
 //
 // Replaces vargp_tpu/ops/pallas/rbf_gram.py::_sym_gram_4d (body
 // _make_sym_gram_whole_kernel).  The TPU kernel ran one program per (h, o)
-// with the whole class block in VMEM; here each (h, o) is a column of
-// 64x64 output tiles (blockIdx.z), since a block's shared memory holds a
-// tile, not a 300x784 class block.  The tile itself is rbf_tile.cuh.
+// with the whole class block in VMEM and computed the full square.  Here
+// K1 is K2's design (sym_gram_tri.cu) on the tensor-core tile of
+// rbf_mma.cuh (3xTF32): the grid is the lower tile pairs of every (h, o)
+// (blockIdx.x the pair, blockIdx.y h * O + o), each distinct entry
+// computed once and mirrored, the diagonal gamma2 exactly.  The tile is
+// Tile64, 64 x 64 outputs, where K2's is 128 x 128: an entry's arithmetic
+// does not depend on the tile, so K1's output equals K2's bit for bit and
+// the values do not change at the gate.
+//
+// What bounds it: the products of the S(S+1)/2 distinct entries at the
+// 3xTF32 rate (A, S = 300, D = 784: 2.1 GFLOP against 20 MB).  Below 512
+// rows the grid is small and padded: at A, 64-row tiles give 15 pairs x 30
+// (h, o) = 450 blocks for 528 slots (four blocks an SM) and compute 320
+// rows of 300; 128-row tiles gave 180 blocks for 264 slots and 384 rows
+// (PERF.md section 6).
 //
 // z (O, M, D), invs = exp(-log_ls) (H, D), gamma2 (H,) -> out (H, O, M, M).
 
-#include "rbf_tile.cuh"
+#include "rbf_mma.cuh"
 
 namespace {
 
-// The symmetric Gram of z[o], both sides scaled by s.
-__global__ void __launch_bounds__(vargp::kThreads) rbf_tile_kernel(
-    const float* __restrict__ a,       // (O, M, D)
-    const float* __restrict__ scale,   // (H, D): s
-    const float* __restrict__ gamma2,  // (H,)
-    float* __restrict__ out,           // (H, O, M, N)
-    int O, int M, int N, int D) {
-  __shared__ vargp::TileSmem sm;
+using rbf_mma::Mode;
+using Tile = rbf_mma::Tile64;
 
-  const int ho = blockIdx.z;
+__global__ void __launch_bounds__(Tile::kThreads, Tile::kMinBlocks)
+    sym_gram_kernel(const float* __restrict__ z, const float* __restrict__ invs,
+                    const float* __restrict__ gamma2, float* __restrict__ out, int O, int M, int D,
+                    bool vec) {
+  extern __shared__ __align__(16) float smem[];
+  const int ho = blockIdx.y;
   const int h = ho / O;
   const int o = ho - h * O;
-  const int row0 = blockIdx.y * vargp::kTileM;
-  const int col0 = blockIdx.x * vargp::kTileN;
-
-  const float* A = a + (size_t)o * M * D;
-  float acc[4][4];
-  vargp::rbf_tile_accumulate<false>(A, A, scale + (size_t)h * D, M, N, D, row0,
-                                    col0, sm, acc);
-
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const float g2 = gamma2[h];
-  float* O_ = out + (size_t)ho * M * N;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty * 4 + i;
-    if (r >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + tx * 4 + j;
-      if (c >= N) continue;
-      O_[(size_t)r * N + c] = vargp::rbf_tile_value(sm, acc, g2, i, j);
-    }
-  }
+  Tile::sym_pair<Mode::kSym>(z + (size_t)o * M * D, invs + (size_t)h * D, gamma2[h],
+                             out + (size_t)ho * M * M, M, D, vec, smem);
 }
+
+std::atomic<uint64_t> allowed{0};  // devices where the kernel's shared memory is allowed
 
 }  // namespace
 
-extern "C" int vargp_sym_gram(const float* z, const float* invs,
-                              const float* gamma2, float* out, int H, int O,
-                              int M, int D, void* stream) {
-  const dim3 grid((M + vargp::kTileN - 1) / vargp::kTileN,
-                  (M + vargp::kTileM - 1) / vargp::kTileM, H * O);
-  rbf_tile_kernel<<<grid, vargp::kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      z, invs, gamma2, out, O, M, M, D);
-  return static_cast<int>(cudaGetLastError());
+extern "C" int vargp_sym_gram(const float* z, const float* invs, const float* gamma2, float* out,
+                              int H, int O, int M, int D, void* stream) {
+  if (M == 0 || H * O == 0) return 0;
+  const int T = (M + Tile::BM - 1) / Tile::BM;
+  const dim3 grid(T * (T + 1) / 2, H * O);
+  return Tile::launch(sym_gram_kernel, allowed, grid, static_cast<cudaStream_t>(stream), z, invs,
+                      gamma2, out, O, M, D, rbf_mma::vec_rows(D, z, z, invs));
 }

@@ -81,9 +81,11 @@ def kl_hypers(params: RBFParams, prior: RBFPrior, *, map_est: bool = False) -> t
 
 def _sym_gram_impl(z, invs, gamma2):
     """K2 from S >= 512 rows and K1 below, as the JAX package routes its
-    Pallas kernels.  Its fallback to unfused math when a whole (h, o) block
+    Pallas kernels; on the card both run one design and give the same
+    values.  Its fallback to unfused math when a whole (h, o) block
     overflows the TPU's VMEM (rbf_gram.py:508-516) has no counterpart here:
-    both CUDA kernels are tiled and hold one 64x64 tile per block at any S."""
+    both kernels hold one tile per block (K1 64 x 64, K2 128 x 128) at
+    any S."""
     if z.shape[-2] >= _TRI_MIN_ROWS:
         return _sym_gram_tri_kernel(z, invs, gamma2)
     return _sym_gram_kernel(z, invs, gamma2)

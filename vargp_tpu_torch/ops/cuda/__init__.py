@@ -4,6 +4,8 @@ A module per kernel: ``sym_gram`` (K1), ``sym_gram_tri`` (K2),
 ``diag_chol`` (K3, and K8 as ``diag_chol_chunked``), ``cross_gram`` (K4),
 ``rbf_gram`` (K5), ``chol_inv`` (K6) and ``chol`` (K7).  Each
 wrapper launches its kernel for CUDA tensors and takes its plain PyTorch
-version for CPU tensors; ``<wrapper>.launches`` counts kernel launches.  ``build``
-compiles and loads the library.
+version for CPU tensors; ``<wrapper>.launches`` counts kernel launches
+(``rbf_gram.sym_launches`` those of K5's symmetric kernel).  The four
+Grams run one tensor-core tile, ``csrc/rbf_mma.cuh``; the factorisations
+share ``csrc/chol_tile.cuh``.  ``build`` compiles and loads the library.
 """

@@ -1,18 +1,20 @@
-"""The tensor-core Gram tile (``csrc/rbf_mma.cuh``) as K2 and K4 ship it,
-on the card.
+"""The tensor-core Gram tile (``csrc/rbf_mma.cuh``) as the four Grams ship
+it, on the card.
 
     python -m vargp_tpu_torch.ops.cuda.gram_probe
 
-Prints ptxas's registers, spills and shared memory for K2's and K4's
-kernels (``sym_gram_tri.cu``, ``cross_gram.cu``), the instruction mix of
+Prints ptxas's registers, spills and shared memory for the tile's kernels
+(``sym_gram.cu``, K1 on Tile64; ``sym_gram_tri.cu``; ``cross_gram.cu``;
+``rbf_gram.cu``, K5's cross and symmetric kernels), the instruction mix of
 each kernel's main loop in the SASS of the kernel library
 (``cuobjdump -sass``: from the barrier before the first ``HMMA`` to the
-branch after the last), then for each shape of ``SHAPES`` (K2 at B; K4 at
-A, at B and at the evaluation's H = 20) the kernel through its wrapper:
-CUDA events around 20 back-to-back launches after a warm-up, the effective
-TFLOP/s (2 M N D operations per (h, o); K2's distinct entries only) and
-the max abs error against the plain version.  The last line is one JSON
-object.  Needs a card and ``nvcc``.
+branch after the last), then for each shape of ``SHAPES`` (K1 at A and at
+the evaluation's H = 20; K2 at B; K4 at A, at B and at the evaluation's;
+K5's K_zz and K_zx at C and at the evaluation's) the kernel through its
+wrapper: CUDA events around 20 back-to-back launches after a warm-up, the
+effective TFLOP/s (2 M N D operations per Gram; a symmetric Gram's
+distinct entries only) and the max abs error against the plain version.
+The last line is one JSON object.  Needs a card and ``nvcc``.
 """
 
 import collections
@@ -27,20 +29,28 @@ import torch
 
 from vargp_tpu_torch.ops.cuda import build
 
-SOURCES = {"sym_gram_tri_kernel": "sym_gram_tri.cu", "cross_gram_kernel": "cross_gram.cu"}
-# label: (kernel, H, O, S, B, D); B is K4's batch
+SOURCES = {"sym_gram_kernel": "sym_gram.cu", "sym_gram_tri_kernel": "sym_gram_tri.cu",
+           "cross_gram_kernel": "cross_gram.cu", "rbf_gram_kernel": "rbf_gram.cu",
+           "rbf_gram_sym_kernel": "rbf_gram.cu"}
+# label: (wrapper, H, O, S, B, D); B is K4's batch, or K5's (0: its K_zz)
 SHAPES = {
-    "K2 at B": ("sym", 3, 10, 1000, 0, 784),
-    "K4 at A": ("cross", 3, 10, 300, 512, 784),
-    "K4 at B": ("cross", 3, 10, 1000, 512, 784),
-    "K4 at eval": ("cross", 20, 10, 300, 512, 784),
+    "K1 at A": ("sym_gram", 3, 10, 300, 0, 784),
+    "K1 at eval": ("sym_gram", 20, 10, 300, 0, 784),
+    "K2 at B": ("sym_gram_tri", 3, 10, 1000, 0, 784),
+    "K4 at A": ("cross_gram", 3, 10, 300, 512, 784),
+    "K4 at B": ("cross_gram", 3, 10, 1000, 512, 784),
+    "K4 at eval": ("cross_gram", 20, 10, 300, 512, 784),
+    "K5 K_zz at C": ("rbf_gram", 3, 10, 300, 0, 64),
+    "K5 K_zx at C": ("rbf_gram", 3, 10, 300, 512, 64),
+    "K5 K_zz at eval": ("rbf_gram", 20, 10, 300, 0, 64),
+    "K5 K_zx at eval": ("rbf_gram", 20, 10, 300, 512, 64),
 }
 
 
 def ptxas_report() -> list[str]:
-    """ptxas's lines for K2's and K4's kernels: registers, spills, shared memory."""
+    """ptxas's lines for the tile's kernels: registers, spills, shared memory."""
     keep = ("Compiling entry function", "registers", "spill")
-    log = build.resource_usage(list(SOURCES.values()))
+    log = build.resource_usage(sorted(set(SOURCES.values())))
     return [ln.strip() for ln in log.splitlines() if any(k in ln for k in keep)]
 
 
@@ -90,11 +100,32 @@ def events_ms(fn, reps=20, warmup=3) -> float:
     return a.elapsed_time(b) / reps
 
 
-def main() -> int:
+def case(kind, H, O, S, B, D):
+    """(kernel call, plain call, operations) of wrapper ``kind`` at one shape
+    of SHAPES; K5 takes H * O Grams of z and x (z against itself when B is
+    0), pre-scaled by 1/sqrt(2) (squared distances near 1)."""
     from vargp_tpu_torch.ops.cuda.cross_gram import cross_gram, cross_gram_plain
-    from vargp_tpu_torch.ops.cuda.sym_gram import sym_gram_plain
+    from vargp_tpu_torch.ops.cuda.rbf_gram import rbf_gram, rbf_gram_plain
+    from vargp_tpu_torch.ops.cuda.sym_gram import sym_gram, sym_gram_plain
     from vargp_tpu_torch.ops.cuda.sym_gram_tri import sym_gram_tri
 
+    if kind == "rbf_gram":
+        z, x, *_, g2 = inputs(1, H * O, S, B, D)
+        z, x = z * 0.5 ** 0.5, x.expand(H * O, *x.shape) * 0.5 ** 0.5
+        g2 = g2.repeat(H * O)
+        y = z if B == 0 else x.contiguous()
+        flops = H * O * (1.0 * S * (S + 1) if B == 0 else 2.0 * S * B) * D
+        return (lambda: rbf_gram(z, y, g2)), (lambda: rbf_gram_plain(z, y, g2)), flops
+    z, x, s, w, g2 = inputs(H, O, S, B, D)
+    if kind == "cross_gram":
+        return (lambda: cross_gram(z, x, w, g2)), (lambda: cross_gram_plain(z, x, w, g2)), \
+            2.0 * H * O * S * B * D
+    kernel = sym_gram if kind == "sym_gram" else sym_gram_tri
+    return (lambda: kernel(z, s, g2)), (lambda: sym_gram_plain(z, s, g2)), \
+        1.0 * H * O * S * (S + 1) * D
+
+
+def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"card: {smi}")
@@ -107,19 +138,14 @@ def main() -> int:
         print(f"  {name} main loop: {n} instructions, {ops.get('HMMA', 0)} HMMA; {ops}")
     results = {"loop_mix": {k: {"instructions": n, "ops": ops} for k, (n, ops) in mix.items()}}
     for label, (kind, H, O, S, B, D) in SHAPES.items():
-        z, x, s, w, g2 = inputs(H, O, S, B, D)
-        if kind == "sym":
-            ref, fn = sym_gram_plain(z, s, g2), lambda: sym_gram_tri(z, s, g2)
-            flops = 1.0 * H * O * S * (S + 1) * D
-        else:
-            ref, fn = cross_gram_plain(z, x, w, g2), lambda: cross_gram(z, x, w, g2)
-            flops = 2.0 * H * O * S * B * D
+        fn, plain, flops = case(kind, H, O, S, B, D)
+        ref = plain()
         err = float((fn() - ref).abs().max())
         ms = events_ms(fn)
         results[label] = dict(ms=ms, tflops=flops / ms / 1e9, max_abs_err=err)
         print(f"  {label}: {ms:.5f} ms, {flops / ms / 1e9:.2f} TFLOP/s effective, "
               f"max abs err {err:.3e}")
-        del z, x, ref
+        del fn, plain, ref
         torch.cuda.empty_cache()
     print(smi)
     print(json.dumps({"gram_probe": results}))

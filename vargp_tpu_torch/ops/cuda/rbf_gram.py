@@ -1,9 +1,10 @@
 """K5: generic RBF Gram on pre-scaled inputs (``csrc/rbf_gram.cu``).
 
 Replaces ``vargp_tpu/ops/pallas/rbf_gram.py::_gram_3d``, entered through
-``rbf_gram_pallas``.  A CUDA tensor launches the kernel; a CPU tensor
-takes :func:`rbf_gram_plain`, the einsum body of ``_rbf_gram_impl``
-(``rbf_gram.py:108-112``).
+``rbf_gram_pallas``.  Both kernels multiply on the tensor cores in 3xTF32
+(``csrc/rbf_mma.cuh``), f32 accuracy.  A CUDA tensor launches one; a CPU
+tensor takes :func:`rbf_gram_plain`, the einsum body of
+``_rbf_gram_impl`` (``rbf_gram.py:108-112``).
 """
 
 import torch
@@ -21,8 +22,23 @@ def rbf_gram_plain(sx: torch.Tensor, sy: torch.Tensor,
     return gamma2[:, None, None] * torch.exp(-0.5 * d2)
 
 
+def same_storage(sx: torch.Tensor, sy: torch.Tensor) -> bool:
+    """True when sx and sy are the same memory read the same way: equal
+    data pointers, shapes and strides (a tensor and itself, or a view of
+    it with its shape), as ``ops.dispatch.rbf_gram`` hands over a
+    self-Gram."""
+    return (sx.data_ptr() == sy.data_ptr() and sx.shape == sy.shape
+            and sx.stride() == sy.stride())
+
+
 def rbf_gram(sx: torch.Tensor, sy: torch.Tensor, gamma2: torch.Tensor) -> torch.Tensor:
-    """K[g, i, j] = gamma2[g] exp(-0.5 |sx[g, i] - sy[g, j]|^2)."""
+    """K[g, i, j] = gamma2[g] exp(-0.5 |sx[g, i] - sy[g, j]|^2).
+
+    On the card, when sx and sy are the same storage (:func:`same_storage`)
+    the symmetric kernel computes each distinct entry once and mirrors it:
+    the Gram is bitwise symmetric and its diagonal is gamma2 exactly.  Any
+    other pair, equal values in two tensors included, takes the cross
+    kernel, whose (i, j) and (j, i) agree only to rounding."""
     if on_cpu(sx, sy, gamma2):
         return rbf_gram_plain(sx, sy, gamma2)
     G, M, D = sx.shape
@@ -33,17 +49,21 @@ def rbf_gram(sx: torch.Tensor, sy: torch.Tensor, gamma2: torch.Tensor) -> torch.
             f"gamma2 {tuple(gamma2.shape)}"
         )
     if G > 65535:
-        raise ValueError(f"rbf_gram: G = {G} exceeds the grid's z limit")
+        raise ValueError(f"rbf_gram: G = {G} exceeds the grid's y and z limits")
     check_f32_contiguous("rbf_gram", sx, sy, gamma2)
     out = torch.empty((G, M, N), device=sx.device, dtype=torch.float32)
     if out.numel() == 0:
         return out
-    launch(
-        "vargp_rbf_gram", sx.device, sx.data_ptr(), sy.data_ptr(), gamma2.data_ptr(),
-        out.data_ptr(), G, M, N, D,
-    )
+    if same_storage(sx, sy):
+        launch("vargp_rbf_gram_sym", sx.device, sx.data_ptr(), gamma2.data_ptr(),
+               out.data_ptr(), G, M, D)
+        rbf_gram.sym_launches += 1
+    else:
+        launch("vargp_rbf_gram", sx.device, sx.data_ptr(), sy.data_ptr(), gamma2.data_ptr(),
+               out.data_ptr(), G, M, N, D)
     rbf_gram.launches += 1
     return out
 
 
-rbf_gram.launches = 0
+rbf_gram.launches = 0  # every launch
+rbf_gram.sym_launches = 0  # the symmetric kernel's

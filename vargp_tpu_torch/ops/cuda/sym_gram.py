@@ -1,8 +1,12 @@
 """K1: symmetric fused-scaling ARD-RBF Gram (``csrc/sym_gram.cu``).
 
-Replaces ``vargp_tpu/ops/pallas/rbf_gram.py::_sym_gram_4d``.  A CUDA
-tensor launches the kernel; a CPU tensor takes :func:`sym_gram_plain`, the
-einsum formulation of ``_sym_gram_xla_math`` (``rbf_gram.py:524``).
+Replaces ``vargp_tpu/ops/pallas/rbf_gram.py::_sym_gram_4d``.  K2's design
+on 64 x 64 tiles: the lower tile pairs on the tensor cores in 3xTF32
+(``csrc/rbf_mma.cuh``), each distinct entry computed once and mirrored, so
+the output is bitwise symmetric, gamma2 exactly on the diagonal, and equal
+to K2's bit for bit.  A CUDA tensor launches the kernel; a CPU tensor takes
+:func:`sym_gram_plain`, the einsum formulation of ``_sym_gram_xla_math``
+(``rbf_gram.py:524``).
 """
 
 import torch
@@ -33,9 +37,11 @@ def sym_gram(z: torch.Tensor, invs: torch.Tensor,
             f"gamma2 {tuple(gamma2.shape)}"
         )
     if H * O > 65535:
-        raise ValueError(f"sym_gram: H*O = {H * O} exceeds the grid's z limit")
+        raise ValueError(f"sym_gram: H*O = {H * O} exceeds the grid's y limit")
     check_f32_contiguous("sym_gram", z, invs, gamma2)
     out = torch.empty((H, O, M, M), device=z.device, dtype=torch.float32)
+    if out.numel() == 0:
+        return out
     launch(
         "vargp_sym_gram", z.device, z.data_ptr(), invs.data_ptr(), gamma2.data_ptr(),
         out.data_ptr(), H, O, M, D,

@@ -3,9 +3,9 @@
 Replaces ``vargp_tpu/ops/pallas/rbf_gram.py::_sym_gram_4d_tri``.  The same
 function as K1 (:func:`sym_gram_plain`), the JAX package's choice for
 chains of S >= 512 rows.  The kernel computes each lower tile once on the
-tensor cores in 3xTF32 (``csrc/rbf_mma.cuh``) and mirrors it: it agrees
-with K1 to f32 rounding, not bit for bit, and its output is bitwise
-symmetric.  A CUDA tensor launches the kernel; a CPU tensor takes the
+tensor cores in 3xTF32 (``csrc/rbf_mma.cuh``) and mirrors it: its output
+is bitwise symmetric, and K1 runs the same design on smaller tiles with
+the same arithmetic per entry, so the two agree bit for bit.  A CUDA tensor launches the kernel; a CPU tensor takes the
 plain version.
 """
 

@@ -270,8 +270,8 @@ def rbf_gram(sx: torch.Tensor, sy: torch.Tensor, gamma2: torch.Tensor) -> torch.
             f"rbf_gram: sx {tuple(sx.shape)}, sy {tuple(sy.shape)}, "
             f"gamma2 {tuple(gamma2.shape)}"
         )
-    K = _RbfGram.apply(
-        sx.reshape(-1, M, D).contiguous(), sy.reshape(-1, N, D).contiguous(),
-        gamma2.reshape(-1).contiguous(),
-    )
+    sx3 = sx.reshape(-1, M, D).contiguous()
+    # a self-Gram (sy is sx) reaches K5 as one tensor: its symmetric kernel
+    sy3 = sx3 if sy is sx else sy.reshape(-1, N, D).contiguous()
+    K = _RbfGram.apply(sx3, sy3, gamma2.reshape(-1).contiguous())
     return K.reshape(*batch, M, N)
