@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive vargp_tpu_torch's forward, training and chain-analysis paths on
-one CUDA card and check them.
+"""Drive vargp_tpu_torch's forward, training, chain-analysis and protocol
+paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -63,7 +63,18 @@ result) on a failure:
    synthetic Split-MNIST test splits (10,000 rows, made by numpy) at the
    notebooks' budgets (n_f=50, n_var_samples=20), with one cell's first
    batch replayed on the CPU from the same draws;
-8. timings: each kernel, its plain version and one PyTorch yardstick call
+8. the protocol: ``vargp_run.split_mnist``, the drivers' entry point,
+   for two tasks of Split-MNIST's chain padded to 5 tasks (A's step),
+   20 epochs each with an evaluation every 10, on the synthetic surrogate
+   (``PROTOCOL``), the launches counted around the run: every logged
+   scalar finite, the evaluations at epochs 10 and 20, task 0's
+   validation accuracy at epoch 20 at least 0.98, the checkpoints
+   reloaded bitwise and their 2 x 2 matrices, and the last evaluated
+   split replayed on the CPU from its own draws (the first batch's
+   probabilities, the split's correct count); it prints ``train_task``'s
+   steps per second, the ms per evaluated split and the phase's wall
+   time beside the card's name and power limit;
+9. timings: each kernel, its plain version and one PyTorch yardstick call
    the port never makes, in device time per call (``torch.profiler``; when
    a trace comes back with no device event, CUDA events with the host
    queued ahead of the card), and
@@ -126,6 +137,15 @@ TRAIN = {
 }
 # the chain-reload analysis at the notebooks' budgets
 ANALYSIS = dict(n_f=50, n_var_samples=20, batch_size=512, seed=5, replay_cell=(1, 0))
+# the protocol: vargp_run.split_mnist's first two tasks at full width (the
+# chain padded to the protocol's 5 tasks: A's step), 20 epochs each with
+# an evaluation every 10, on the synthetic surrogate.  Task 0's
+# validation accuracy at epoch 20 must reach min_val_acc (the JAX
+# package's minted run, results/smnist_r4, had 1.000 there); one
+# evaluated split is replayed on the CPU, its correct count within
+# count_tol of its rows.
+PROTOCOL = dict(n_tasks=2, pad_tasks_to=5, epochs=20, eval_interval=10, seed=SEED,
+                eval_epochs=[10, 20], min_val_acc=0.98, count_tol=1e-3)
 
 # H100 SXM rates for the bound (NVIDIA data sheet): f32 on the CUDA cores
 # and HBM3 bandwidth.
@@ -1010,6 +1030,156 @@ def check_analysis(dev):
     return dict(acc=acc, ent=ent, wall_s=wall, launches=launches, predicts=n_batches)
 
 
+@contextlib.contextmanager
+def recorded_protocol(dev):
+    """Wrap ``train_task``, ``train_block`` and the evaluation function of
+    the drivers' path so that each call is recorded (and each evaluated
+    split timed between two synchronisations); the functions themselves
+    run unchanged."""
+    from vargp_tpu_torch.experiments import vargp_run
+    from vargp_tpu_torch.train import loop as TL
+
+    rec = {"infos": [], "steps": 0, "split_ms": [], "batches": 0, "last_split": None}
+    orig = (vargp_run.train_task, TL.train_block, TL.make_device_eval_fn)
+
+    def train_task(*a, **kw):
+        params, info = orig[0](*a, **kw)
+        rec["infos"].append(info)
+        return params, info
+
+    def train_block(*a, **kw):
+        out = orig[1](*a, **kw)
+        rec["steps"] += out[2].numel()
+        return out
+
+    def make_device_eval_fn(*a, **kw):
+        fn = orig[2](*a, **kw)
+
+        def eval_acc(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            rec["split_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["batches"] += args[3].shape[0]
+            rec["last_split"] = (args, out)
+            return out
+
+        return eval_acc
+
+    vargp_run.train_task, TL.train_block, TL.make_device_eval_fn = (
+        train_task, train_block, make_device_eval_fn)
+    try:
+        yield rec
+    finally:
+        vargp_run.train_task, TL.train_block, TL.make_device_eval_fn = orig
+
+
+def to_cpu(tree):
+    """A tree of tensors (NamedTuples, tuples, dicts) with every tensor on
+    the CPU."""
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu()
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        subs = [to_cpu(v) for v in tree]
+        return type(tree)(*subs) if hasattr(tree, "_fields") else tuple(subs)
+    return tree
+
+
+def check_protocol(dev, smi):
+    """The protocol through the drivers' entry point: ``split_mnist``'s
+    first two tasks on the card (the launches counted around the run), the
+    evaluation cadence, task 0's validation accuracy, the checkpoints
+    reloaded bitwise and their 2 x 2 matrices, and the last evaluated
+    split replayed on the CPU from its own draws."""
+    from vargp_tpu_torch import data
+    from vargp_tpu_torch.experiments import analysis as A
+    from vargp_tpu_torch.experiments import vargp_run
+    from vargp_tpu_torch.models import vargp as V
+    from vargp_tpu_torch.train import loop as TL
+    from vargp_tpu_torch.train.optim import tree_leaves
+    from vargp_tpu_torch.utils.checkpoint import load_chain
+
+    pr = PROTOCOL
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d, recorded_protocol(dev) as rec:
+        reset_counts()
+        t0 = time.perf_counter()
+        chain, summaries = vargp_run.split_mnist(
+            n_tasks=pr["n_tasks"], pad_tasks_to=pr["pad_tasks_to"], epochs=pr["epochs"],
+            eval_interval=pr["eval_interval"], seed=pr["seed"], log_dir=d, device=dev)
+        torch.cuda.synchronize()
+        run_wall = time.perf_counter() - t0
+        launches = read_counts()
+        with open(os.path.join(d, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        cfg = V.VARGPConfig(M=FLAGSHIP["M"], out_size=FLAGSHIP["O"], in_size=FLAGSHIP["D"])
+        loaded = load_chain(d, pr["n_tasks"], A.params_template(cfg))
+    T = pr["n_tasks"]
+    sps = [info["steps_per_sec"] for info in rec["infos"]]
+    print(f"  split_mnist, {T} tasks of a {pr['pad_tasks_to']}-task chain, {pr['epochs']} epochs: "
+          f"{run_wall:.3f} s, {rec['steps']} train steps, {len(rec['split_ms'])} evaluated splits "
+          f"({rec['batches']} batches); launches {launches}")
+    print(f"  train_task steps_per_sec per task {sps}; ms per evaluated split (a build_posterior "
+          f"and its batches) mean {np.mean(rec['split_ms']):.3f}, min {min(rec['split_ms']):.3f}, "
+          f"max {max(rec['split_ms']):.3f}; {smi}")
+    if not all(math.isfinite(r["value"]) for r in rows):
+        raise AssertionError("protocol: a logged scalar is not finite")
+    for t in range(T):
+        evals = [(r["step"], r["value"]) for r in rows if r["tag"] == f"task{t}/val/acc"]
+        print(f"  task {t}: validation accuracy at its evaluations {evals}; best {summaries[t]}")
+        if [e for e, _ in evals] != pr["eval_epochs"]:
+            raise AssertionError(f"protocol task {t}: evaluations at epochs {evals}, "
+                                 f"expected {pr['eval_epochs']}")
+    val0 = dict((r["step"], r["value"]) for r in rows if r["tag"] == "task0/val/acc")[pr["epochs"]]
+    if not val0 >= pr["min_val_acc"]:
+        raise AssertionError(f"protocol: task 0 validation accuracy {val0} at epoch {pr['epochs']},"
+                             f" expected >= {pr['min_val_acc']}")
+    # every step and every evaluated split builds one posterior (K1, K3 x 3)
+    # and every step and evaluated batch one K_zx (K4)
+    want = {k: 0 for k in counters()}
+    n_post = rec["steps"] + len(rec["split_ms"])
+    want.update(sym_gram=n_post, diag_chol=3 * n_post, cross_gram=rec["steps"] + rec["batches"])
+    if launches != want:
+        raise AssertionError(f"protocol: launches {launches}, expected {want}")
+
+    for k, (p, q) in enumerate(zip(chain, loaded)):
+        for n, a, b in zip(leaf_names(p), tree_leaves(p), tree_leaves(q)):
+            if not np.array_equal(a.cpu().numpy(), b):
+                raise AssertionError(f"protocol: task {k} checkpoint leaf {n} is not bitwise")
+    test_full = data.load_mnist(None, train=False)
+    test_sets = [data.filter_by_class(test_full, [2 * t, 2 * t + 1]) for t in range(T)]
+    acc, ent = A.accuracy_entropy_matrices(chain, cfg, test_sets, seed=pr["seed"], device=dev)
+    print(f"  checkpoints reloaded bitwise; accuracy matrix {acc.tolist()}, entropy {ent.tolist()}")
+    if acc.shape != (T, T) or not (np.isfinite(acc).all() and np.isfinite(ent).all()):
+        raise AssertionError("protocol: analysis matrices of the wrong shape or not finite")
+
+    # the last evaluated split (task 1's test split at its last evaluation)
+    # again on the CPU, from the same parameters, chain, stacks and draws
+    args, (count, total) = rec["last_split"]
+    params, prev, mask, xs, ys, ws, draws = args
+    hp = TL.TrainHyperparams()
+    cpu_args = to_cpu((params, prev, mask, xs, ys, ws, draws))
+    cpu_count, _ = TL.make_device_eval_fn(cfg, hp)(*cpu_args, device="cpu")
+    with torch.no_grad():
+        card_b0 = next(TL.eval_predictions(params, prev, mask, xs, draws, cfg, hp, device=dev))
+        cpu_b0 = next(TL.eval_predictions(*cpu_args[:4], cpu_args[6], cfg, hp, device="cpu"))
+    check("protocol: the last evaluated split's first batch, card vs CPU",
+          max_abs_err(card_b0.cpu(), cpu_b0), TOL_PROBS, float(cpu_b0.max()))
+    n_rows = float(total)
+    diff = abs(float(count) - float(cpu_count))
+    print(f"  that split's correct count: card {float(count)} CPU {float(cpu_count)} of "
+          f"{n_rows:.0f} rows (tol {pr['count_tol']:.0e} of the rows)")
+    if not diff <= pr["count_tol"] * n_rows:
+        raise AssertionError(f"protocol: correct counts differ by {diff} of {n_rows} rows")
+    wall = time.perf_counter() - t_phase
+    print(f"  protocol phase wall time {wall:.3f} s; {smi}")
+    return dict(launches=launches, steps=rec["steps"], steps_per_sec=sps,
+                split_ms=float(np.mean(rec["split_ms"])), wall_s=wall, acc=acc)
+
+
 def check_outputs(where, pieces, probs, shape=FLAGSHIP):
     B, O = shape["B"], shape["O"]
     if not all(math.isfinite(v) for v in pieces):
@@ -1376,6 +1546,9 @@ def main() -> int:
     print("chain-reload analysis (C's shapes, synthetic Split-MNIST test splits):")
     analysis = check_analysis(dev)
 
+    print("the protocol (split_mnist's first two tasks at A's width, synthetic Split-MNIST):")
+    protocol = check_protocol(dev, smi)
+
     print("timings (ms per call):")
     spd = flag_k3["(30, 128, 128)"]
     G = spd.shape[0]
@@ -1471,11 +1644,13 @@ def main() -> int:
         print(f"  {n}: launches per train step {per_step}, "
               f"per forward (loss + predict) { {k: v[n] for k, v in forward_launches.items()} }, "
               f"per train block { {k: v[n] for k, v in block_launches.items()} }, "
-              f"in the analysis {analysis['launches'][n]}")
+              f"in the analysis {analysis['launches'][n]}, in the protocol "
+              f"{protocol['launches'][n]}")
         kernels.append({
             "name": n, "route": e["route"], "source": e["source"], "replaces": e["replaces"],
             # launches: the counted train steps (A, B, C) of the kernel's path
             "launches": sum(per_step.values()), "launches_per_step": per_step, "path": path,
+            "protocol_launches": protocol["launches"][n],
             "max_abs_err": errs[n], **t, **{f"at_{lb}": times[lb] for lb in rest},
         })
         if n in f64:  # the Grams against float64

@@ -136,3 +136,98 @@ def port_inputs(m: dict, prev, mask, key, params=None):
     t = lambda a: torch.tensor(np.asarray(a))
     return (tp, tprev, tprior, t(m["x"]), t(m["y"]), t(m["w"]), noise,
             None if mask is None else t(mask))
+
+
+def _loss_draws(key, cfg, O: int, B: int, c: int):
+    """``JV.loss``'s draws from ``key`` for a config and a chain of c rows."""
+    n_v = cfg.n_var_samples
+    H = 1 if cfg.map_est_hypers else n_v
+    k_fwd, k_lik = jax.random.split(key)
+    k_hyp, k_u = jax.random.split(k_fwd)
+    hyper = jax.random.normal(k_hyp, (n_v, JV._theta_size(cfg) + 1), jnp.float32)
+    prefix = jax.random.normal(k_u, (n_v, H, O, c), jnp.float32) if c else None
+    lik = jax.random.normal(k_lik, (H, cfg.n_f, O, B), jnp.float32)
+    return hyper, prefix, lik
+
+
+def _mlp_uniform(key, dims):
+    """The U[0, 1) draws the JAX package's ``init_mlp`` makes from ``key``."""
+    draws = []
+    for i in range(len(dims) - 1):
+        key, wk, bk = jax.random.split(key, 3)
+        draws += [jax.random.uniform(wk, (dims[i], dims[i + 1])),
+                  jax.random.uniform(bk, (dims[i + 1],))]
+    return draws
+
+
+class JaxDraws:
+    """A draw source for the port's ``train_task`` that replays the draws
+    the JAX ``train_task`` makes from ``key``: ``k_init`` for the inducing
+    rows and the initial parameters, then one key split off ``k_run`` per
+    train block (each epoch's permutation from ``fold_in(k_blk, e)``, step
+    s's loss noise from ``fold_in(k_blk, n_epochs + s)``) and per
+    evaluation (``make_device_eval_fn``'s: theta from ``k_post``, batch
+    i's function samples from ``fold_in(k_lik, i)``; per batch,
+    ``predict``'s draws from ``fold_in(k_ev, i)``)."""
+
+    def __init__(self, key):
+        self.k_init, self.key_seq = jax.random.split(key)
+
+    @staticmethod
+    def _t(a):
+        return torch.tensor(np.asarray(a))
+
+    def inducing(self, data, M, out_size):
+        z = JV.select_inducing(self.k_init, jnp.asarray(data.numpy()), M, out_size)
+        return self._t(z).to(data.device)
+
+    def init(self, cfg, with_phi):
+        from vargp_tpu.kernels.deep import DEFAULT_FEATURES, DEFAULT_HIDDEN
+
+        k_kern, k_u, k_phi = jax.random.split(self.k_init, 3)
+        out = {"kernel_eps": self._t(jax.random.normal(k_kern, (JV._theta_size(cfg) + 1,))),
+               "u_eps": self._t(jax.random.normal(k_u, (cfg.out_size, cfg.M, 1)))}
+        if with_phi:
+            dims = [cfg.in_size, DEFAULT_HIDDEN, DEFAULT_HIDDEN, DEFAULT_FEATURES]
+            out["phi_uniform"] = [self._t(u) for u in _mlp_uniform(k_phi, dims)]
+        return out
+
+    def block(self, n_pad, batch_size, n_epochs, cfg, n_prev):
+        self.key_seq, k_blk = jax.random.split(self.key_seq)
+        steps = n_pad // batch_size
+        for e in range(n_epochs):
+            perm = self._t(jax.random.permutation(jax.random.fold_in(k_blk, e), n_pad)).long()
+            for s in range(steps):
+                k = jax.random.fold_in(k_blk, n_epochs + e * steps + s)
+                hyper, prefix, lik = _loss_draws(k, cfg, cfg.out_size, batch_size,
+                                                 n_prev * cfg.M)
+                yield (perm[s * batch_size:(s + 1) * batch_size],
+                       convert.noise_for_loss(hyper, prefix, lik, device="cpu"))
+
+    def evaluation(self, cfg_eval, n_batches, batch_size, per_batch):
+        self.key_seq, k_ev = jax.random.split(self.key_seq)
+        return jax_eval_draws(k_ev, cfg_eval, n_batches, batch_size, per_batch)
+
+
+def jax_eval_draws(k_ev, cfg_eval, n_batches, batch_size, per_batch):
+    """The draws of the JAX ``make_device_eval_fn`` from ``k_ev`` as the
+    port's evaluation noise: hyper_eps (n_v, P+1), or (K, n_v, P+1) per
+    batch, and lik_eps (K, H, n_f, O, B)."""
+    t = JaxDraws._t
+    H = 1 if cfg_eval.map_est_hypers else cfg_eval.n_var_samples
+    O, n_v, P = cfg_eval.out_size, cfg_eval.n_var_samples, JV._theta_size(cfg_eval)
+    lik_shape = (H, cfg_eval.n_f, O, batch_size)
+    if per_batch:
+        hyper, lik = [], []
+        for i in range(n_batches):
+            k_fwd, k_lik = jax.random.split(jax.random.fold_in(k_ev, i))
+            k_hyp, _ = jax.random.split(k_fwd)
+            hyper.append(jax.random.normal(k_hyp, (n_v, P + 1)))
+            lik.append(jax.random.normal(k_lik, lik_shape))
+        return {"hyper_eps": t(jnp.stack(hyper)), "lik_eps": t(jnp.stack(lik))}
+    k_post, k_lik = jax.random.split(k_ev)
+    return {
+        "hyper_eps": t(jax.random.normal(k_post, (n_v, P + 1))),
+        "lik_eps": t(jnp.stack([jax.random.normal(jax.random.fold_in(k_lik, i), lik_shape)
+                                for i in range(n_batches)])),
+    }

@@ -34,3 +34,11 @@ def make_permutations(n_tasks: int, dim: int, rng: np.random.Generator):
 def apply_permutation(ds: ArrayDataset, perm: np.ndarray) -> ArrayDataset:
     return ArrayDataset(ds.data[:, perm], ds.targets)
 
+
+def concat(datasets) -> ArrayDataset:
+    """The datasets' rows one after another (Permuted-MNIST's accumulated
+    validation and test splits)."""
+    return ArrayDataset(
+        np.concatenate([d.data for d in datasets], axis=0),
+        np.concatenate([d.targets for d in datasets], axis=0),
+    )

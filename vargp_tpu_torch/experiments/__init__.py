@@ -1,2 +1,3 @@
-"""Experiments; counterpart of ``vargp_tpu/experiments`` (the chain-reload
-analysis so far)."""
+"""Experiments; counterpart of ``vargp_tpu/experiments``: the VAR-GP
+drivers (``vargp_run``), their command line (``cli``) and the
+chain-reload analysis."""

@@ -2,7 +2,7 @@
 saved checkpoint chain.
 
 Counterpart of ``vargp_tpu/experiments/analysis.py`` (the S-MNIST,
-P-MNIST and Split-Digits analyses; the toy, global-SVGP and comparison
+P-MNIST, Split-Digits and toy analyses; the global-SVGP and comparison
 deliverables and the plots come later).  Task t's model is
 [ckpt0 .. ckpt_{t-1}] frozen plus ckpt_t, padded to the chain's length
 with ``pad_chain``; row t of a matrix is that model, column s the test
@@ -16,7 +16,8 @@ uses one key per cell.  ``eval_draws`` yields the same draws again, so a
 cell can be replayed elsewhere (on the CPU, say).
 
 The default output file is ``analysis_torch.json`` beside the chain,
-never the minted ``analysis.json``.
+never the minted ``analysis.json``; the toy's are
+``toy_density_torch.json`` and ``density_grid_torch.npz``.
 """
 
 import json
@@ -174,3 +175,63 @@ def analyze_pmnist(log_dir: str, data_dir=None, n_tasks: int = 10, M: int = 100,
     acc, ent = accuracy_entropy_matrices(chain, cfg, test_sets, seed=seed, n_f=n_f,
                                          n_var_samples=n_var_samples, device=device)
     return _write(summarize(acc, ent), log_dir, out_json)
+
+
+def toy_density_grid(chain, cfg: V.VARGPConfig, lo: float = -3.0, hi: float = 3.0,
+                     n: int = 60, *, gen: torch.Generator, n_f: int = 100,
+                     n_var_samples: int = 20, device=None):
+    """Each class's predictive probability over an n x n grid of [lo, hi]^2
+    after each task (the reference's toy.ipynb cells 3-6): (grid_x,
+    grid_y, probs (T, n, n, C)).  Each task's noise comes from ``gen``."""
+    dev = resolve_device(device)
+    xs = np.linspace(lo, hi, n, dtype=np.float32)
+    gx, gy = np.meshgrid(xs, xs)
+    pts = torch.from_numpy(np.stack([gx.ravel(), gy.ravel()], axis=-1)).to(dev)
+    cfg_eval = V.eval_budget_cfg(cfg, n_f=n_f, n_var_samples=n_var_samples)
+    draws = eval_draws(gen, cfg_eval, len(chain), n * n)
+    out = []
+    with torch.no_grad():
+        for t, params in enumerate(chain):
+            prev = tuple(V.freeze_task(p) for p in chain[:t])
+            probs = V.predict(params, prev, pts, next(draws), cfg_eval, device=dev)
+            out.append(probs.cpu().numpy().reshape(n, n, -1))
+    return gx, gy, np.stack(out)
+
+
+def analyze_toy(log_dir: str, n_tasks: int = 2, M: int = 20, out_json: str | None = None,
+                n: int = 60, n_f: int = 100, n_var_samples: int = 20, data_seed: int = 0,
+                seed: int = 0, device=None) -> dict:
+    """The toy deliverable from a toy chain: the density grid
+    (``density_grid_torch.npz``) and the density retention,
+    density_retention[t] = the mean predicted probability of the true
+    class over task 0's training points under the model after task t
+    (``toy_density_torch.json``, or ``out_json``).  The noise comes from
+    one generator seeded with ``seed``: the grid's draws, then each
+    task's retention draws.  The figure waits for ``plots.py``."""
+    dev = resolve_device(device)
+    cfg = V.VARGPConfig(M=M, out_size=4, in_size=2)
+    chain = load_task_chain(log_dir, n_tasks, cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    gx, gy, probs = toy_density_grid(chain, cfg, n=n, gen=gen, n_f=n_f,
+                                     n_var_samples=n_var_samples, device=dev)
+    np.savez(os.path.join(log_dir, "density_grid_torch.npz"), gx=gx, gy=gy, probs=probs)
+
+    task0 = data.filter_by_class(data.make_toy_dataset(seed=data_seed), [0, 1])
+    cfg_eval = V.eval_budget_cfg(cfg, n_f=n_f, n_var_samples=n_var_samples)
+    draws = eval_draws(gen, cfg_eval, len(chain), len(task0))
+    x0 = torch.from_numpy(task0.data).to(dev)
+    retention = []
+    with torch.no_grad():
+        for t, params in enumerate(chain):
+            prev = tuple(V.freeze_task(p) for p in chain[:t])
+            p = V.predict(params, prev, x0, next(draws), cfg_eval, device=dev).cpu().numpy()
+            retention.append(float(np.mean(p[np.arange(len(task0)), task0.targets])))
+    summary = dict(
+        density_retention=retention, task0_true_class_prob_final=retention[-1],
+        grid_n=n, n_f=n_f, n_var_samples=n_var_samples,
+    )
+    out_json = out_json or os.path.join(log_dir, "toy_density_torch.json")
+    with open(out_json, "w") as f:
+        json.dump(summary, f, indent=2)
+    print(json.dumps(summary))
+    return summary

@@ -1,3 +1,3 @@
-"""Training: the optimizers, the ELBO step, the on-device train block and
-the evaluation metrics; counterpart of ``vargp_tpu/train`` (``train_task``
-and its evaluation loop and stopper are not ported yet)."""
+"""Training: the optimizers, the ELBO step, the on-device train block,
+the evaluation, the early stopper and ``train_task``; counterpart of
+``vargp_tpu/train``."""

@@ -3,7 +3,9 @@
 ``params_from_numpy`` reads the JAX package's ``VARGPParams``,
 ``TaskPosterior`` and ``RBFPrior`` by field name, after the caller has run
 ``np.asarray`` on every leaf; ``opt_state_from_numpy`` reads an optax
-Yogi/Adam state (``count``, ``mu``, ``nu``) the same way.  Nothing of the
+Yogi/Adam state (``count``, ``mu``, ``nu``) the same way, or the phi-grouped
+chain's state (a tuple holding that state and, with the freeze knob, a
+``scale``).  Nothing of the
 JAX package is imported.  ``params_to_numpy`` and ``opt_state_to_numpy``
 go the other way, to numpy leaves in the JAX package's tree order
 (z, u_mean, u_tril_vec, kernel.log_mean, kernel.log_logvar and, under the
@@ -21,7 +23,7 @@ import torch
 from vargp_tpu_torch.kernels import MLPParams, RBFParams, RBFPrior
 from vargp_tpu_torch.models.vargp import TaskPosterior, VARGPParams
 from vargp_tpu_torch.ops.device import resolve_device
-from vargp_tpu_torch.train.optim import OptState, tree_leaves, tree_unflatten
+from vargp_tpu_torch.train.optim import GroupState, OptState, tree_leaves, tree_unflatten
 
 
 def to_tensor(a, device=None) -> torch.Tensor:
@@ -53,10 +55,18 @@ def params_from_numpy(params, prev: Sequence = (), prior=None, *, device=None):
     return p, chain, pr
 
 
-def opt_state_from_numpy(state, *, device=None) -> OptState:
+def opt_state_from_numpy(state, *, device=None):
     """An optax ``ScaleByAdamState`` (count, and mu / nu of VARGPParams'
-    structure) as the port's ``OptState`` on ``device``."""
+    structure) as the port's ``OptState`` on ``device``; the phi-grouped
+    chain's state (a tuple of the parts' states) as a ``GroupState``, its
+    phi scale 1 when the chain holds none."""
     dev = resolve_device(device)
+    if not hasattr(state, "mu"):
+        moments = next(s for s in state if hasattr(s, "mu"))
+        scales = [s.scale for s in state if hasattr(s, "scale")]
+        scale = np.asarray(scales[0] if scales else 1.0, dtype=np.float32)
+        return GroupState(opt_state_from_numpy(moments, device=dev),
+                          torch.tensor(scale, device=dev))
     count = torch.tensor(np.asarray(state.count), dtype=torch.int32, device=dev)
     return OptState(
         count, _vargp_params(state.mu, lambda a: to_tensor(a, dev)),
@@ -69,8 +79,12 @@ def params_to_numpy(params):
     return tree_unflatten(params, [t.detach().cpu().numpy() for t in tree_leaves(params)])
 
 
-def opt_state_to_numpy(state: OptState) -> OptState:
-    """``OptState`` with numpy leaves: count (int32 scalar), mu, nu."""
+def opt_state_to_numpy(state):
+    """``OptState`` with numpy leaves: count (int32 scalar), mu, nu; a
+    ``GroupState`` as such a state and its phi scale (f32 scalar)."""
+    if isinstance(state, GroupState):
+        return GroupState(opt_state_to_numpy(state.moments),
+                          np.asarray(state.phi_scale.cpu().numpy(), dtype=np.float32))
     return OptState(
         np.asarray(state.count.cpu().numpy(), dtype=np.int32),
         params_to_numpy(state.mu), params_to_numpy(state.nu),
