@@ -74,7 +74,24 @@ result) on a failure:
    probabilities, the split's correct count); it prints ``train_task``'s
    steps per second, the ms per evaluated split and the phase's wall
    time beside the card's name and power limit;
-9. timings: each kernel, its plain version and one PyTorch yardstick call
+9. the global continual SVGP: K5 on raw 784-pixel rows at the global
+   path's shapes (S-MNIST's joint self-Gram of [z; prev.z] (30, 120, 784)
+   and K_zx against a batch (30, 60 x 512), the analysis's pair at
+   G = 200, P-MNIST's joint (30, 200, 784)) and on the toy's two inputs
+   (its joint (12, 60, 2) and K_zx (12, 40 x 512): the small kernel), each
+   against its plain version and against float64 (``check_f64``), the
+   self-Grams with rows shared by z and prev.z; K7 at (30, 60, 60),
+   (30, 100, 100) and (12, 40, 40) against its plain version; one global
+   ``elbo_step`` at task 1 of s_mnist_global (M = 60) and at p_mnist_global
+   (M = 100), each with a previous task, its launches counted (K5 twice,
+   one symmetric; K7 three times) and its four ELBO pieces and every
+   gradient against the CPU's; then ``global_run.split_mnist``'s first two
+   tasks, 20 epochs each with an evaluation every 10 (``GLOBAL_PROTOCOL``),
+   its launches counted, task 0's validation accuracy at epoch 20, the last
+   evaluated split replayed on the CPU, and the chain reload:
+   ``analyze_smnist_global`` on its checkpoints on the card and on the CPU
+   with the card's draws;
+10. timings: each kernel, its plain version and one PyTorch yardstick call
    the port never makes, in device time per call (``torch.profiler``; when
    a trace comes back with no device event, CUDA events with the host
    queued ahead of the card), and
@@ -93,7 +110,9 @@ result) on a failure:
    forward, forward + backward and whole step of training at A, B and C,
    and the step under the solve and fused routes (CUDA events); the
    default step's kernel launches and device-busy time under
-   ``torch.profiler``.
+   ``torch.profiler``; K5 and K7 also at the global shapes of phase 9
+   (nested as at_<label>), and the global step's forward, forward +
+   backward, whole step, launches, device-busy time and idle share.
 
 The line before the last two is one JSON object ``{"kernels": [...]}``; then
 the card's ``nvidia-smi`` name and power limit; the last line is
@@ -146,6 +165,40 @@ ANALYSIS = dict(n_f=50, n_var_samples=20, batch_size=512, seed=5, replay_cell=(1
 # count_tol of its rows.
 PROTOCOL = dict(n_tasks=2, pad_tasks_to=5, epochs=20, eval_interval=10, seed=SEED,
                 eval_epochs=[10, 20], min_val_acc=0.98, count_tol=1e-3)
+
+# The global continual SVGP (vargp_tpu_torch/experiments/global_run.py):
+# one elbo_step at task 1 of s_mnist_global (M = 60 a class, the previous
+# task's 60 rows: z starts as their copy, perturbed here by a step's worth
+# of training) and at a task of p_mnist_global (M = 100, the previous 100);
+# raw 784-pixel rows of the synthetic MNIST surrogate.  A step launches K5
+# twice (the joint self-Gram of [z; prev.z], symmetric, and K_zx against
+# the batch) and K7 three times.  The protocol phase runs
+# s_mnist_global's first two tasks, 20 epochs each, an evaluation every
+# 10; task 0's validation accuracy at epoch 20 must reach min_val_acc (the
+# JAX package's minted run, results/smnist_global, had 1.0 there).
+GLOBAL_STEP = {
+    "S-MNIST global": dict(M=60, O=10, D=784, B=512, H=3, n_f=10, lr=3e-3, beta=10.0,
+                           n_train=11000),
+    "P-MNIST global": dict(M=100, O=10, D=784, B=512, H=3, n_f=10, lr=3.7e-3, beta=1.64,
+                           n_train=50000),
+}
+GLOBAL_LAUNCHES = {"rbf_gram": 2, "rbf_gram_sym": 1, "cholesky": 3}
+GLOBAL_PROTOCOL = dict(n_tasks=2, epochs=20, eval_interval=10, seed=SEED, eval_epochs=[10, 20],
+                       min_val_acc=0.95, count_tol=1e-3)
+# K5 on raw pixels and on the toy's two inputs, (G, S, N, D): N = 0 is a
+# self-Gram (the joint [z; prev.z] of a step with a previous task, the
+# analysis's K_zz), else a cross Gram against N rows; K7 at the global
+# path's factor shapes (G, S).
+GLOBAL_GRAMS = {
+    "S-MNIST global joint K_zz": (30, 120, 0, 784),
+    "S-MNIST global K_zx": (30, 60, 512, 784),
+    "analysis global K_zz": (200, 60, 0, 784),
+    "analysis global K_zx": (200, 60, 512, 784),
+    "P-MNIST global joint K_zz": (30, 200, 0, 784),
+    "toy global joint K_zz": (12, 60, 0, 2),
+    "toy global K_zx": (12, 40, 512, 2),
+}
+GLOBAL_CHOL = {"S-MNIST global": (30, 60), "P-MNIST global": (30, 100), "toy global": (12, 40)}
 
 # H100 SXM rates for the bound (NVIDIA data sheet): f32 on the CUDA cores
 # and HBM3 bandwidth.
@@ -1486,6 +1539,419 @@ def time_training(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the global continual SVGP
+# ---------------------------------------------------------------------------
+
+
+def pixel_rows(rng, n: int, D: int = 784) -> np.ndarray:
+    """n rows of the synthetic MNIST surrogate's test split (every run of
+    it makes the same rows from its numpy seed), drawn by ``rng``; the
+    toy's rows for D = 2."""
+    from vargp_tpu_torch import data
+
+    ds = data.load_mnist(None, train=False) if D == 784 else data.make_toy_dataset(seed=0)
+    return ds.data[rng.integers(0, len(ds), n)]
+
+
+def global_gram_inputs(rng, G, S, N, D, device):
+    """K5's inputs at a global shape: G sets of S rows (and N more) of
+    pixels or toy points, each set scaled by its own lengthscales, near
+    half the rows' median distance (so the Gram spreads over (0, gamma2))
+    and varying by 20% across the features, and gamma2 (G,) near 7 (the
+    minted S-MNIST global run's).  A self-Gram's rows repeat their first
+    half (z and the previous task's rows, equal at a task's start)."""
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    rows = pixel_rows(rng, G * (S + N), D).reshape(G, S + N, D)
+    if N == 0:
+        rows[:, S // 2:S] = rows[:, :S - S // 2]
+    d = np.sqrt(np.median(np.sum((rows[0, :32, None] - rows[0, None, :32]) ** 2, axis=-1)))
+    ls = 0.5 * d * np.exp(0.2 * rng.standard_normal((G, 1, D)))
+    scaled = rows / ls
+    gamma2 = t(np.exp(np.log(7.0) + 0.2 * rng.standard_normal(G)))
+    sz = t(scaled[:, :S])
+    return sz, (sz if N == 0 else t(scaled[:, S:])), gamma2
+
+
+def check_k5_global(dev):
+    """K5 at the global path's shapes (GLOBAL_GRAMS) against its plain
+    version and against float64 (check_f64, self-Grams off the diagonal),
+    each launch counted and its kernel told by the counters; every
+    self-Gram bitwise symmetric with gamma2 on its diagonal.  Returns the
+    largest error, the float64 errors and the inputs for timing."""
+    from vargp_tpu_torch.ops.cuda.rbf_gram import rbf_gram, rbf_gram_plain
+
+    rng = np.random.default_rng(SEED + 8)
+    err, f64, inputs = 0.0, {}, {}
+    for label, (G, S, N, D) in GLOBAL_GRAMS.items():
+        a, b, g = global_gram_inputs(rng, G, S, N, D, dev)
+        inputs[label] = (a, b, g)
+        sym = a is b
+        before, before_sym = rbf_gram.launches, rbf_gram.sym_launches
+        K = rbf_gram(a, b, g)
+        torch.cuda.synchronize()
+        if (rbf_gram.launches, rbf_gram.sym_launches) != (before + 1, before_sym + int(sym)):
+            raise AssertionError(f"K5 {label}: the wrong launch (symmetric expected: {sym})")
+        ref = rbf_gram_plain(a, b, g)
+        e = max_abs_err(K, ref)
+        check(f"K5 rbf_gram {label} {tuple(K.shape)} (D = {D}, "
+              f"{'symmetric' if sym else 'cross'} launch)", e, TOL_GRAM * float(g.max()),
+              float(ref.abs().max()))
+        eye = check_symmetric(f"K5 {label}", K, ref, g) if sym else None
+        err = max(err, e)
+        f64[label] = check_f64(f"K5 rbf_gram {label}{', off the diagonal' if sym else ''}", K,
+                               rbf_gram_plain, rbf_gram_1xtf32, (a, b, g),
+                               keep=None if eye is None else ~eye)
+        del K, ref
+    return err, f64, inputs
+
+
+def check_k7_global(dev):
+    """K7 at the global path's factor shapes (GLOBAL_CHOL) against its
+    plain version, junk above the diagonal (only the lower triangle is
+    read), each launch counted.  Returns the largest error and the inputs
+    for timing."""
+    from vargp_tpu_torch.ops.cuda.chol import cholesky, cholesky_plain
+
+    rng = np.random.default_rng(SEED + 9)
+    err, inputs = 0.0, {}
+    for label, (G, S) in GLOBAL_CHOL.items():
+        K = spd_blocks(rng, G, dev, S)
+        before = cholesky.launches
+        L = cholesky(junk_above(K))
+        torch.cuda.synchronize()
+        if cholesky.launches != before + 1:
+            raise AssertionError("K7's launch counter did not count its launch")
+        ref = cholesky_plain(K)
+        e = max_abs_err(L, ref)
+        check(f"K7 cholesky {label} {tuple(K.shape)}", e, TOL_CHOL, float(ref.abs().max()))
+        err = max(err, e)
+        inputs[label] = K
+    return err, inputs
+
+
+def global_inputs(name, device, seed=SEED):
+    """The global model at GLOBAL_STEP[name] on ``device`` with a previous
+    task, from a numpy seed: prev.z the surrogate's rows, z their copy
+    moved by N(0, 0.01) per pixel, lengthscales near half the rows' median
+    distance, random variational parameters; the step's batch and noise."""
+    from vargp_tpu_torch.gpmath import tril_size, vec2tril
+    from vargp_tpu_torch.kernels import RBFParams, RBFPrior
+    from vargp_tpu_torch.models import global_svgp as G
+    from vargp_tpu_torch.train import loop as TL
+
+    f = GLOBAL_STEP[name]
+    O, M, D, B, H, n_f = f["O"], f["M"], f["D"], f["B"], f["H"], f["n_f"]
+    cfg = G.GlobalSVGPConfig(M=M, out_size=O, in_size=D, n_f=n_f, n_var_samples=H)
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    prev_z = pixel_rows(rng, O * M).reshape(O, M, D)
+    rows = pixel_rows(rng, 64)
+    d = np.sqrt(np.median(np.sum((rows[:, None] - rows[None]) ** 2, axis=-1)))
+    log_ls = np.log(0.5 * d) + 0.05 * rng.standard_normal(D)
+    n_tri = tril_size(M)
+    prev = G.GlobalPrev(
+        z=t(prev_z), u_mean=t(rng.standard_normal((O, M, 1)) * 0.5),
+        u_tril=vec2tril(t(rng.standard_normal((O, n_tri)) * 0.1)))
+    mean = np.concatenate([log_ls, [np.log(2.0)]])
+    params = G.GlobalSVGPParams(
+        z=t(prev_z + 0.01 * rng.standard_normal(prev_z.shape)),
+        u_mean=t(rng.standard_normal((O, M, 1)) * 0.5),
+        u_tril_vec=t(np.eye(M)[np.tril_indices(M)] + 0.1 * rng.standard_normal((O, n_tri))),
+        kernel=RBFParams(t(mean), t(np.full(D + 1, -2.0))))
+    prior = RBFPrior(t(mean + 0.1 * rng.standard_normal(D + 1)), t(np.full(D + 1, -1.0)))
+    x = t(pixel_rows(rng, B))
+    y = torch.tensor(rng.integers(0, O, B), device=device)
+    noise = {"hyper_eps": t(rng.standard_normal((H, D + 1))),
+             "lik_eps": t(rng.standard_normal((H, n_f, O, B))),
+             "reg_eps": t(rng.standard_normal((H, H, O, M)))}
+    opt = TL.make_optimizer(TL.TrainHyperparams(lr=f["lr"]))
+    return dict(cfg=cfg, params=params, prev=prev, prior=prior, x=x, y=y, noise=noise,
+                w=torch.ones(B, device=device), n_train=f["n_train"], beta=f["beta"], opt=opt,
+                device=device)
+
+
+def global_grads(t):
+    """The global ELBO's four pieces and every parameter leaf's gradient."""
+    from vargp_tpu_torch.models import global_svgp as G
+    from vargp_tpu_torch.train.optim import tree_leaves, tree_unflatten
+
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(t["params"])]
+    pieces = G.loss(tree_unflatten(t["params"], leaves), t["prev"], t["prior"], t["x"], t["y"],
+                    t["noise"], t["cfg"], weights=t["w"], device=t["device"])
+    klh, klu, upr, nll = pieces
+    total = t["beta"] * klh + klu - upr + t["n_train"] / float(t["x"].shape[0]) * nll
+    return [v.detach() for v in pieces], torch.autograd.grad(total, leaves)
+
+
+def global_step(t):
+    from vargp_tpu_torch.train import loop_global as TLG
+
+    return TLG.elbo_step(t["params"], t["opt"].init(t["params"]), t["prev"], t["prior"], t["x"],
+                         t["y"], t["w"], t["noise"], cfg=t["cfg"], opt=t["opt"], beta=t["beta"],
+                         n_train=t["n_train"], device=t["device"])
+
+
+def check_global_step(name, dev):
+    """One global elbo_step on the card with its launches counted; the four
+    ELBO pieces and every gradient against the CPU's on the same inputs
+    and noise.  Returns the step's launches."""
+    t, c = global_inputs(name, dev), global_inputs(name, torch.device("cpu"))
+    reset_counts()
+    _, _, loss, _ = global_step(t)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"  {name}: one elbo_step, launches {launches}, loss {float(loss)!r}")
+    want = {k: 0 for k in counters()}
+    want.update(GLOBAL_LAUNCHES)
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches}, expected {want}")
+    pieces, grads = global_grads(t)
+    cpu_pieces, cpu_grads = global_grads(c)
+    names = leaf_names(t["params"])
+    for n, g, r in zip(("kl_hypers", "kl_u", "u_prev_reg", "nll"), pieces, cpu_pieces):
+        g, r = float(g), float(r)
+        rel = abs(g - r) / max(abs(r), 1e-30)
+        print(f"  {name} {n}: card {g!r} cpu {r!r}, rel err {rel:.3e} (tol {TOL_E2E_REL:.0e})")
+        if not (rel <= TOL_E2E_REL and math.isfinite(g)):
+            raise AssertionError(f"{name} {n}: card and CPU differ by {rel} (relative)")
+    for leaf, g, r in zip(names, grads, cpu_grads):
+        scale = float(r.abs().max())
+        rel = max_abs_err(g.cpu(), r) / max(scale, 1e-30)
+        print(f"  {name} d ELBO / d {leaf}: max abs err / largest magnitude {rel:.3e} "
+              f"(largest {scale:.3e}, tol {TOL_GRAD_REL:.0e})")
+        if not (rel <= TOL_GRAD_REL and bool(torch.isfinite(g).all())):
+            raise AssertionError(f"{name}: gradient of {leaf} differs by {rel}")
+    return launches
+
+
+@contextlib.contextmanager
+def recorded_global(dev):
+    """Wrap the global drivers' ``train_task``, train block, evaluation
+    function and the analysis's draws so that each call is recorded (each
+    evaluated split timed between two synchronisations); the functions
+    run unchanged."""
+    from vargp_tpu_torch.experiments import analysis as A
+    from vargp_tpu_torch.experiments import global_run
+    from vargp_tpu_torch.train import loop_global as TLG
+
+    rec = {"infos": [], "steps": 0, "split_ms": [], "batches": 0, "last_split": None,
+           "draws": []}
+    orig = (global_run.train_task, TLG.train_block_global, TLG.make_device_eval_fn_global,
+            A.eval_draws)
+
+    def train_task(*a, **kw):
+        params, info = orig[0](*a, **kw)
+        rec["infos"].append(info)
+        return params, info
+
+    def train_block(*a, **kw):
+        out = orig[1](*a, **kw)
+        rec["steps"] += out[2].numel()
+        return out
+
+    def make_eval_fn(*a, **kw):
+        fn = orig[2](*a, **kw)
+
+        def eval_acc(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            rec["split_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["batches"] += args[2].shape[0]
+            rec["last_split"] = (args, out)
+            return out
+
+        return eval_acc
+
+    def eval_draws(*a, **kw):
+        for d in orig[3](*a, **kw):
+            rec["draws"].append(d)
+            yield d
+
+    global_run.train_task, TLG.train_block_global, TLG.make_device_eval_fn_global = (
+        train_task, train_block, make_eval_fn)
+    A.eval_draws = eval_draws
+    try:
+        yield rec
+    finally:
+        (global_run.train_task, TLG.train_block_global, TLG.make_device_eval_fn_global,
+         A.eval_draws) = orig
+
+
+def check_global_protocol(dev, smi):
+    """s_mnist_global's first two tasks through the drivers' entry point on
+    the card (the launches counted around the run): the evaluation
+    cadence, task 0's validation accuracy, every logged scalar finite, the
+    last evaluated split replayed on the CPU from its own draws; then the
+    chain reload: ``analyze_smnist_global`` on the saved checkpoints on the
+    card, and again on the CPU with the card's draws."""
+    from vargp_tpu_torch.experiments import analysis as A
+    from vargp_tpu_torch.experiments import global_run
+    from vargp_tpu_torch.models import global_svgp as G
+    from vargp_tpu_torch.train import loop as TL
+    from vargp_tpu_torch.train import loop_global as TLG
+
+    pr = GLOBAL_PROTOCOL
+    T = pr["n_tasks"]
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        with recorded_global(dev) as rec:
+            reset_counts()
+            t0 = time.perf_counter()
+            params, summaries = global_run.split_mnist(
+                n_tasks=T, epochs=pr["epochs"], eval_interval=pr["eval_interval"],
+                seed=pr["seed"], log_dir=d, device=dev)
+            torch.cuda.synchronize()
+            run_wall = time.perf_counter() - t0
+            launches = read_counts()
+        with open(os.path.join(d, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        sps = [info["steps_per_sec"] for info in rec["infos"]]
+        print(f"  s_mnist_global, {T} tasks, {pr['epochs']} epochs: {run_wall:.3f} s, "
+              f"{rec['steps']} train steps, {len(rec['split_ms'])} evaluated splits "
+              f"({rec['batches']} batches); launches {launches}")
+        print(f"  train_task steps_per_sec per task {sps}; ms per evaluated split (a predict "
+              f"per batch) mean {np.mean(rec['split_ms']):.3f}, min {min(rec['split_ms']):.3f}, "
+              f"max {max(rec['split_ms']):.3f}; {smi}")
+        if not all(math.isfinite(r["value"]) for r in rows):
+            raise AssertionError("global protocol: a logged scalar is not finite")
+        for t in range(T):
+            evals = [(r["step"], r["value"]) for r in rows if r["tag"] == f"task{t}/val/acc"]
+            reg = [r["value"] for r in rows if r["tag"] == f"task{t}/loss/u_prev_reg"]
+            print(f"  task {t}: validation accuracy at its evaluations {evals}; u_prev_reg {reg}; "
+                  f"best {summaries[t]}")
+            if [e for e, _ in evals] != pr["eval_epochs"]:
+                raise AssertionError(f"global protocol task {t}: evaluations at epochs {evals}")
+            if (t == 0) != all(v == 0.0 for v in reg):
+                raise AssertionError(f"global protocol task {t}: u_prev_reg {reg}")
+        val0 = dict((r["step"], r["value"]) for r in rows
+                    if r["tag"] == "task0/val/acc")[pr["epochs"]]
+        if not val0 >= pr["min_val_acc"]:
+            raise AssertionError(f"global protocol: task 0 validation accuracy {val0} at epoch "
+                                 f"{pr['epochs']}, expected >= {pr['min_val_acc']}")
+        # a step: K5 twice (one symmetric), K7 once at task 0 and three times
+        # after; an evaluated batch: K5 twice (one symmetric), K7 once
+        steps0 = rec["infos"][0]["steps"]
+        steps1 = rec["steps"] - steps0
+        want = {k: 0 for k in counters()}
+        want.update(rbf_gram=2 * (rec["steps"] + rec["batches"]),
+                    rbf_gram_sym=rec["steps"] + rec["batches"],
+                    cholesky=steps0 + 3 * steps1 + rec["batches"])
+        if launches != want:
+            raise AssertionError(f"global protocol: launches {launches}, expected {want}")
+
+        # the last evaluated split (task 1's test split) again on the CPU
+        args, (count, total) = rec["last_split"]
+        cfg = G.GlobalSVGPConfig(M=FLAGSHIP["M"], out_size=FLAGSHIP["O"], in_size=FLAGSHIP["D"])
+        hp = TL.TrainHyperparams()
+        cpu_args = to_cpu(args)
+        cpu_count, _ = TLG.make_device_eval_fn_global(cfg, hp)(*cpu_args, device="cpu")
+        p, prev, xs, ys, ws, draws = args
+        with torch.no_grad():
+            b0 = {k: v[0] for k, v in draws.items()}
+            card_b0 = G.predict(p, prev, xs[0], b0, cfg, device=dev).cpu()
+            cpu_b0 = G.predict(*to_cpu((p, prev, xs[0], b0)), cfg, device="cpu")
+        check("global protocol: the last evaluated split's first batch, card vs CPU",
+              max_abs_err(card_b0, cpu_b0), TOL_PROBS, float(cpu_b0.max()))
+        diff = abs(float(count) - float(cpu_count))
+        print(f"  that split's correct count: card {float(count)} CPU {float(cpu_count)} of "
+              f"{float(total):.0f} rows (tol {pr['count_tol']:.0e} of the rows)")
+        if not diff <= pr["count_tol"] * float(total):
+            raise AssertionError(f"global protocol: correct counts differ by {diff}")
+
+        # the chain reload: the analysis on the card, then on the CPU with
+        # the card's draws
+        with recorded_global(dev) as rec_a:
+            reset_counts()
+            t0 = time.perf_counter()
+            card = A.analyze_smnist_global(d, n_tasks=T, device=dev)
+            torch.cuda.synchronize()
+            a_wall = time.perf_counter() - t0
+            a_launches = read_counts()
+        replay = iter([{k: v.cpu() for k, v in dr.items()} for dr in rec_a["draws"]])
+        orig = A.eval_draws
+        A.eval_draws = lambda *a, **kw: iter([next(replay)])
+        try:
+            cpu = A.analyze_smnist_global(d, n_tasks=T, device="cpu",
+                                          out_json=os.path.join(d, "analysis_cpu.json"))
+        finally:
+            A.eval_draws = orig
+    acc, cacc = np.asarray(card["acc_matrix"]), np.asarray(cpu["acc_matrix"])
+    ent, cent = np.asarray(card["ent_matrix"]), np.asarray(cpu["ent_matrix"])
+    print(f"  analyze_smnist_global on the card: {a_wall:.3f} s, launches {a_launches}; accuracy "
+          f"matrix {acc.tolist()}, entropy {np.round(ent, 5).tolist()}; the CPU's with the same "
+          f"draws: max |dacc| {np.abs(acc - cacc).max()!r}, max |dent| {np.abs(ent - cent).max()!r}")
+    if acc.shape != (T, T) or not (np.isfinite(acc).all() and np.isfinite(ent).all()):
+        raise AssertionError("global reload: matrices of the wrong shape or not finite")
+    if not (np.abs(acc - cacc).max() <= pr["count_tol"] and np.abs(ent - cent).max() <= TOL_PROBS):
+        raise AssertionError("global reload: the card's matrices differ from the CPU's")
+    wall = time.perf_counter() - t_phase
+    print(f"  global protocol phase wall time {wall:.3f} s; {smi}")
+    return dict(launches=launches, steps=rec["steps"], steps_per_sec=sps,
+                split_ms=float(np.mean(rec["split_ms"])), wall_s=wall, acc=acc,
+                analysis_launches=a_launches, analysis_wall_s=a_wall)
+
+
+def global_kernel_cases(k5_inputs, k7_inputs) -> tuple[dict, dict]:
+    """kernel_times cases for K5 at GLOBAL_GRAMS and K7 at GLOBAL_CHOL: the
+    kernel, its plain version, the library call (``cdist`` + ``exp``;
+    ``torch.linalg.cholesky``), the operations and bytes (inputs read once,
+    outputs written once; a self-Gram's S(S+1)/2 distinct entries, K7's
+    S^3/3 multiply-adds' worth) at the 3xTF32 rate."""
+    from vargp_tpu_torch.ops.cuda.chol import cholesky, cholesky_plain
+    from vargp_tpu_torch.ops.cuda.rbf_gram import rbf_gram, rbf_gram_plain
+
+    k5 = {}
+    for label, (a, b, g) in k5_inputs.items():
+        G, S, D = a.shape
+        N = b.shape[1]
+        g3 = g[:, None, None]
+        inputs = G * S * D if a is b else G * (S + N) * D
+        k5[label] = dict(
+            shape=[G, S, N, D], fn=functools.partial(rbf_gram, a, b, g),
+            plain=functools.partial(rbf_gram_plain, a, b, g),
+            library=lambda a=a, b=b, g3=g3: g3 * torch.exp(-0.5 * torch.cdist(a, b).square()),
+            flops=1.0 * G * S * (S + 1) * D if a is b else 2.0 * G * S * N * D,
+            nbytes=4.0 * (inputs + G + G * S * N), peak=PEAK_TF32X3_FLOPS)
+    k7 = {}
+    for label, K in k7_inputs.items():
+        G, S = K.shape[0], K.shape[-1]
+        k7[label] = dict(
+            shape=[G, S, S], fn=functools.partial(cholesky, K),
+            plain=functools.partial(cholesky_plain, K),
+            library=functools.partial(torch.linalg.cholesky, K), peak=PEAK_TF32X3_FLOPS,
+            flops=G * S ** 3 / 3.0, nbytes=4.0 * G * (S * (S + 1) / 2 + S * S))
+    return k5, k7
+
+
+def time_global_training(dev):
+    """The global step at GLOBAL_STEP's configurations: ms per forward,
+    forward + backward and whole step (CUDA events around back-to-back
+    calls), the step's launches and device-busy ms under torch.profiler,
+    and its idle share (1 - busy / step ms)."""
+    from vargp_tpu_torch.models import global_svgp as G
+
+    out = {}
+    for name in GLOBAL_STEP:
+        t = global_inputs(name, dev)
+
+        def fwd():
+            with torch.no_grad():
+                return G.loss(t["params"], t["prev"], t["prior"], t["x"], t["y"], t["noise"],
+                              t["cfg"], weights=t["w"], device=dev)
+
+        launches, busy = traced_step(lambda: global_step(t))
+        step_ms = time_ms(lambda: global_step(t), reps=10)
+        out[name] = {"forward_ms": time_ms(fwd, reps=10),
+                     "forward_backward_ms": time_ms(lambda: global_grads(t), reps=10),
+                     "step_ms": step_ms, "step_launches_traced": launches,
+                     "step_device_busy_ms": busy, "idle_share": 1.0 - busy / step_ms}
+        print(f"  global step {name}: " + "  ".join(f"{k} {v:.4f}" for k, v in out[name].items()))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1511,6 +1977,12 @@ def main() -> int:
     errs["rbf_gram"], f64["rbf_gram"] = check_k5(dev)
     errs_chol, flag_chol, clusters = check_chol_kernels(dev)
     errs.update(errs_chol)
+    print("the global SVGP's kernel shapes (K5 on raw pixels and on the toy's 2 inputs, K7):")
+    e5, f64_global, k5_global = check_k5_global(dev)
+    errs["rbf_gram"] = max(errs["rbf_gram"], e5)
+    f64["rbf_gram"].update(f64_global)
+    e7, k7_global = check_k7_global(dev)
+    errs["cholesky"] = max(errs["cholesky"], e7)
     # K3's timing shapes: the first diagonal block of A's (and C's) and of
     # B's chain Gram and of the analysis's (C's chain at H = 20), as views
     flag_k3 = {"(30, 128, 128)": flag_k3["(30, 128, 128)"],
@@ -1540,6 +2012,8 @@ def main() -> int:
             if route == "fused":  # the same function as the default route, on the card
                 compare_grads(f"{name} fused vs default route, card", card[2], card[0], card[1],
                               *step_out[name][1][:2])
+    print("the global SVGP's training step (one elbo_step each; gradients, card vs CPU):")
+    global_launches = {name: check_global_step(name, dev) for name in GLOBAL_STEP}
     print("training (train blocks on the card):")
     block_launches = check_training(dev)
 
@@ -1548,6 +2022,10 @@ def main() -> int:
 
     print("the protocol (split_mnist's first two tasks at A's width, synthetic Split-MNIST):")
     protocol = check_protocol(dev, smi)
+
+    print("the global protocol (s_mnist_global's first two tasks, synthetic Split-MNIST), "
+          "and its chain reload:")
+    global_protocol = check_global_protocol(dev, smi)
 
     print("timings (ms per call):")
     spd = flag_k3["(30, 128, 128)"]
@@ -1608,6 +2086,8 @@ def main() -> int:
             fn=lambda: diag_chol_chunked(k8in), plain=lambda: diag_chol_plain(k8in),
             library=lambda: torch.linalg.cholesky(k8in), **chol_work(k8in, 1, 1))},
     ))
+    k5_cases, k7_cases = global_kernel_cases(k5_global, k7_global)
+    next(e for e in entries if e["name"] == "rbf_gram")["cases"].update(k5_cases)
     for n, path, src, rpl, fn, plain, lib, n_out, n_f in (
         ("cholesky", "solve", "chol.cu", "chol.py:82", cholesky, cholesky_plain,
          torch.linalg.cholesky, 1, 1),
@@ -1624,6 +2104,7 @@ def main() -> int:
                 library=functools.partial(lib, flag_chol[cfg_name]),
                 **chol_work(flag_chol[cfg_name], n_out, n_f)) for cfg_name in ("A", "B")},
         ))
+    next(e for e in entries if e["name"] == "cholesky")["cases"].update(k7_cases)
     kernels = []
     # ms, plain_ms, library_ms: device time per call (device_ms); event_ms:
     # CUDA events around back-to-back calls, the wrapper's host time included.
@@ -1646,11 +2127,20 @@ def main() -> int:
               f"per train block { {k: v[n] for k, v in block_launches.items()} }, "
               f"in the analysis {analysis['launches'][n]}, in the protocol "
               f"{protocol['launches'][n]}")
+        global_step_launches = {k: v[n] for k, v in global_launches.items()}
+        print(f"  {n}: launches per global step {global_step_launches}, in the global protocol "
+              f"{global_protocol['launches'][n]}, in its chain reload "
+              f"{global_protocol['analysis_launches'][n]}")
         kernels.append({
             "name": n, "route": e["route"], "source": e["source"], "replaces": e["replaces"],
-            # launches: the counted train steps (A, B, C) of the kernel's path
-            "launches": sum(per_step.values()), "launches_per_step": per_step, "path": path,
+            # launches: the counted train steps of the kernel's paths (A, B,
+            # C on its route; the global SVGP's two)
+            "launches": sum(per_step.values()) + sum(global_step_launches.values()),
+            "launches_per_step": per_step, "path": path,
             "protocol_launches": protocol["launches"][n],
+            "global_launches_per_step": global_step_launches,
+            "global_protocol_launches": global_protocol["launches"][n],
+            "global_reload_launches": global_protocol["analysis_launches"][n],
             "max_abs_err": errs[n], **t, **{f"at_{lb}": times[lb] for lb in rest},
         })
         if n in f64:  # the Grams against float64
@@ -1709,6 +2199,7 @@ def main() -> int:
             print(f"  {name} {label} end to end: {(time.perf_counter() - t0) / reps * 1e3:.4f} ms "
                   f"(host clock, synchronised)")
     time_training(dev)
+    time_global_training(dev)
     print(f"  launches per step under each route: default {step_launches}, "
           f"{ {r: v for r, v in route_launches.items()} }; "
           f"per loss + predict under the solve route {solve_forward_launches}")

@@ -12,6 +12,7 @@ import torch
 from vargp_tpu import gpmath as jgm
 from vargp_tpu.models import vargp as JV
 from vargp_tpu_torch.models import vargp as TV
+from vargp_tpu_torch.train.optim import tree_leaves, tree_unflatten
 from vargp_tpu_torch.utils import convert
 
 f32 = np.float32
@@ -231,3 +232,153 @@ def jax_eval_draws(k_ev, cfg_eval, n_batches, batch_size, per_batch):
         "lik_eps": t(jnp.stack([jax.random.normal(jax.random.fold_in(k_lik, i), lik_shape)
                                 for i in range(n_batches)])),
     }
+
+
+# ---------------------------------------------------------------------------
+# The global continual SVGP
+# ---------------------------------------------------------------------------
+
+GLOBAL = dict(O=3, M=6, M_grown=9, D=5, B=16, H=2, N_F=4)
+
+
+def global_cfgs(M: int, **kw):
+    """The JAX and the port's ``GlobalSVGPConfig`` at GLOBAL's widths."""
+    from vargp_tpu.models import global_svgp as JG
+    from vargp_tpu_torch.models import global_svgp as TG
+
+    d = GLOBAL
+    args = dict(M=M, out_size=d["O"], in_size=d["D"], n_f=d["N_F"], n_var_samples=d["H"], **kw)
+    return JG.GlobalSVGPConfig(**args), TG.GlobalSVGPConfig(**args)
+
+
+def build_global(case: str, seed: int = 0) -> dict:
+    """A global SVGP case at GLOBAL's widths, the JAX side's trees:
+    ``task0`` (no previous task, M = 6), ``grown`` (a previous task of 6
+    rows, M = 9: its rows followed by 3 new ones) and ``copy`` (M = 6, z a
+    copy of prev.z: the first step of a task that grows nothing, where
+    Kxx - W^T W is rounding around 0).  The current task's u_tril_vec and
+    the prior are perturbed off their initial values."""
+    from vargp_tpu.models import global_svgp as JG
+
+    d = GLOBAL
+    O, D, B = d["O"], d["D"], d["B"]
+    rng = np.random.default_rng(seed)
+    rows = lambda n: jnp.asarray((rng.standard_normal((O, n, D)) * 0.5).astype(f32))
+    prev = None
+    M = d["M_grown"] if case == "grown" else d["M"]
+    if case == "task0":
+        z = rows(M)
+    else:
+        jcfg_prev, _ = global_cfgs(d["M"])
+        pp, _ = JG.init_params(jax.random.key(seed + 1), rows(d["M"]), jcfg_prev)
+        noise = lambda a, s: jnp.asarray((rng.standard_normal(a.shape) * s).astype(f32))
+        pp = pp._replace(u_mean=pp.u_mean + noise(pp.u_mean, 0.3),
+                         u_tril_vec=noise(pp.u_tril_vec, 0.2))
+        prev = JG.freeze_task(pp)
+        z = (jnp.concatenate([prev.z, rows(M - d["M"])], axis=-2) if case == "grown"
+             else jnp.array(prev.z))
+    jcfg, tcfg = global_cfgs(M)
+    params, prior = JG.init_params(jax.random.key(seed), z, jcfg)
+    params = params._replace(u_tril_vec=params.u_tril_vec + jnp.asarray(
+        (rng.standard_normal(params.u_tril_vec.shape) * 0.05).astype(f32)))
+    prior = prior._replace(log_mean=prior.log_mean + 0.3)
+    x = jnp.asarray((rng.standard_normal((B, D)) * 0.5).astype(f32))
+    y = jnp.asarray(rng.integers(0, O, B))
+    w = jnp.asarray((rng.random(B) > 0.2).astype(f32))
+    return dict(cfg=jcfg, tcfg=tcfg, params=params, prior=prior, prev=prev, x=x, y=y, w=w)
+
+
+def global_loss_draws(key, cfg, B: int, M_prev: int | None, dtype=jnp.float32):
+    """The draws ``global_svgp.loss`` makes from ``key`` (split three ways:
+    forward, likelihood, regulariser): hyper samples (n_v, D+1), function
+    samples (H, n_f, O, B) and, with a previous task, the regulariser's
+    (n_v, H, O, M_prev), in the parameters' ``dtype``."""
+    n_v = cfg.n_var_samples
+    H = 1 if cfg.map_est_hypers else n_v
+    k_fwd, k_lik, k_reg = jax.random.split(key, 3)
+    hyper = jax.random.normal(k_fwd, (n_v, cfg.in_size + 1), dtype)
+    lik = jax.random.normal(k_lik, (H, cfg.n_f, cfg.out_size, B), dtype)
+    reg = None
+    if M_prev is not None:
+        reg = jax.random.normal(k_reg, (n_v, H, cfg.out_size, M_prev), dtype)
+    return hyper, lik, reg
+
+
+def global_predict_draws(key, cfg, B: int, dtype=jnp.float32):
+    """The draws ``global_svgp.predict`` makes from ``key`` at ``cfg``'s
+    budgets: hyper samples, then function samples."""
+    H = 1 if cfg.map_est_hypers else cfg.n_var_samples
+    k_fwd, k_lik = jax.random.split(key)
+    return (jax.random.normal(k_fwd, (cfg.n_var_samples, cfg.in_size + 1), dtype),
+            jax.random.normal(k_lik, (H, cfg.n_f, cfg.out_size, B), dtype))
+
+
+def to_f64(tree):
+    """A JAX tree with its f32 leaves as float64 (inside ``jax.enable_x64``)."""
+    def cast(a):
+        a = np.asarray(a)
+        return jnp.asarray(a, jnp.float64 if a.dtype == np.float32 else a.dtype)
+
+    return jax.tree_util.tree_map(cast, tree)
+
+
+class JaxGlobalDraws(JaxDraws):
+    """A draw source for the port's global ``train_task`` that replays the
+    JAX ``loop_global.train_task``'s draws from ``key``: ``k_init`` for the
+    inducing rows (or the rows grown onto the previous task's) AND for the
+    initial parameters (the JAX function hands the one key to both), then
+    one key split off ``k_run`` per train block (epoch e's permutation from
+    ``fold_in(k_blk, e)``, step s's loss draws from
+    ``fold_in(k_blk, n_epochs + s)``) and per evaluation (batch i's
+    ``predict`` draws from ``fold_in(k_ev, i)``, shared by the splits)."""
+
+    def grow(self, prev_z, data, M, out_size):
+        from vargp_tpu.models import global_svgp as JG
+
+        z = JG.grow_inducing(self.k_init, jnp.asarray(prev_z.numpy()), jnp.asarray(data.numpy()),
+                             M, out_size)
+        return self._t(z).to(data.device)
+
+    def init(self, cfg, with_phi):
+        k_kern, k_u = jax.random.split(self.k_init)
+        return {"kernel_eps": self._t(jax.random.normal(k_kern, (cfg.in_size + 1,))),
+                "u_eps": self._t(jax.random.normal(k_u, (cfg.out_size, cfg.M, 1)))}
+
+    def block(self, n_pad, batch_size, n_epochs, cfg, M_prev):
+        self.key_seq, k_blk = jax.random.split(self.key_seq)
+        steps = n_pad // batch_size
+        for e in range(n_epochs):
+            perm = self._t(jax.random.permutation(jax.random.fold_in(k_blk, e), n_pad)).long()
+            for s in range(steps):
+                k = jax.random.fold_in(k_blk, n_epochs + e * steps + s)
+                hyper, lik, reg = global_loss_draws(k, cfg, batch_size, M_prev)
+                yield (perm[s * batch_size:(s + 1) * batch_size],
+                       convert.noise_for_global_loss(hyper, lik, reg, device="cpu"))
+
+    def evaluation(self, cfg_eval, n_batches, batch_size, per_batch):
+        self.key_seq, k_ev = jax.random.split(self.key_seq)
+        hyper, lik = zip(*(global_predict_draws(jax.random.fold_in(k_ev, i), cfg_eval, batch_size)
+                           for i in range(n_batches)))
+        return {"hyper_eps": self._t(jnp.stack(hyper)), "lik_eps": self._t(jnp.stack(lik))}
+
+
+def global_port(m: dict, dtype=torch.float32):
+    """The port's (params, prev, prior, x, y, w) on the CPU in ``dtype`` for
+    a ``build_global`` case."""
+    tp, tprev, tprior = convert.params_from_numpy(np_tree(m["params"]), np_tree(m["prev"]),
+                                                  np_tree(m["prior"]), device="cpu")
+    t = lambda a: torch.tensor(np.asarray(a))
+    cast = lambda tree: None if tree is None else tree_unflatten(
+        tree, [a.to(dtype) for a in tree_leaves(tree)])
+    return cast(tp), cast(tprev), cast(tprior), t(m["x"]).to(dtype), t(m["y"]), t(m["w"]).to(dtype)
+
+
+def global_noise(m: dict, key, dtype=torch.float32) -> dict:
+    """``global_svgp.loss``'s noise for a ``build_global`` case: the JAX
+    draws of ``key`` in ``dtype`` (float64 draws under ``jax.enable_x64``)."""
+    M_prev = None if m["prev"] is None else m["prev"].z.shape[-2]
+    with jax.enable_x64(dtype == torch.float64):
+        draws = global_loss_draws(key, m["cfg"], m["x"].shape[0], M_prev,
+                                  jnp.float64 if dtype == torch.float64 else jnp.float32)
+        return {k: torch.tensor(np.asarray(v)) for k, v in
+                zip(("hyper_eps", "lik_eps", "reg_eps"), draws) if v is not None}

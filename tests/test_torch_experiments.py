@@ -2,9 +2,10 @@
 CPU, at tiny sizes as tests/test_experiments.py runs the JAX package's:
 every driver end to end, a resumed run against an uninterrupted one
 (bitwise), the sweep's read-back, the command table and its refusals,
-a chain written by the port read by the JAX package, and the toy chain
+a chain written by the port read by the JAX package, the toy chain
 ``results/toy_full`` reloaded (within the JAX analysis's own spread over
-evaluation keys)."""
+evaluation keys).  The global SVGP's drivers and analyses are in
+tests/test_torch_global_run.py."""
 
 import json
 import os
@@ -151,7 +152,9 @@ def test_parse_args_as_the_jax_cli():
 def test_command_table():
     cmds = cli._commands()
     assert set(cmds) == {"toy", "s_mnist", "p_mnist", "s_digits", "varying_m", "analyze_smnist",
-                         "analyze_pmnist", "analyze_sdigits", "analyze_toy"}
+                         "analyze_pmnist", "analyze_sdigits", "analyze_toy", "toy_global",
+                         "s_mnist_global", "p_mnist_global", "analyze_toy_global",
+                         "analyze_smnist_global"}
     from vargp_tpu.experiments import cli as jcli
 
     assert set(cmds) | set(cli.NOT_PORTED) == set(jcli._commands())

@@ -19,7 +19,16 @@
 //     distinct entry computed once and mirrored, the diagonal gamma2
 //     exactly.
 //
-// Only the symmetric kernel gives a bitwise symmetric Gram.  The cross
+//   rbf_gram_small_kernel (vargp_rbf_gram_small): D <= 16 (the toy's two
+//     inputs), one thread an output, d^2 = sum_d (a_d - b_d)^2 in f32.  The
+//     tile's 3xTF32 product carries up to ~3 * 2^-22 of |a| |b| per term,
+//     which a deep sum's f32 rounding hides and a 2-term one does not (at
+//     D = 2 the tile's Gram lay 3.4x the f32 plain version's distance from
+//     float64); the differences are exact for equal rows (d^2 = 0, the
+//     value gamma2) and give a bitwise symmetric self-Gram ((a - b)^2 ==
+//     (b - a)^2, the same order over d).
+//
+// Only the symmetric kernels give a bitwise symmetric Gram.  The cross
 // kernel computes (i, j) and (j, i) as two products whose cross terms
 // trade places, so equal values handed over as two tensors give a Gram
 // that is symmetric only to rounding; the wrapper (ops/cuda/rbf_gram.py)
@@ -64,6 +73,23 @@ __global__ void __launch_bounds__(Tile::kThreads, Tile::kMinBlocks)
                                    out + (size_t)g * M * M, M, D, vec, smem);
 }
 
+__global__ void rbf_gram_small_kernel(const float* __restrict__ sx, const float* __restrict__ sy,
+                                      const float* __restrict__ gamma2, float* __restrict__ out,
+                                      int M, int N, int D) {
+  const int g = blockIdx.z;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= M || j >= N) return;
+  const float* a = sx + ((size_t)g * M + i) * D;
+  const float* b = sy + ((size_t)g * N + j) * D;
+  float d2 = 0.f;
+  for (int k = 0; k < D; ++k) {
+    const float d = a[k] - b[k];
+    d2 = fmaf(d, d, d2);
+  }
+  out[((size_t)g * M + i) * N + j] = gamma2[g] * expf(-0.5f * d2);
+}
+
 // devices where each kernel's shared memory is allowed
 std::atomic<uint64_t> allowed{0}, allowed_sym{0};
 
@@ -84,4 +110,14 @@ extern "C" int vargp_rbf_gram_sym(const float* sx, const float* gamma2, float* o
   const dim3 grid(T * (T + 1) / 2, G);
   return Tile::launch(rbf_gram_sym_kernel, allowed_sym, grid, static_cast<cudaStream_t>(stream),
                       sx, gamma2, out, M, D, rbf_mma::vec_rows(D, sx, sx, nullptr));
+}
+
+extern "C" int vargp_rbf_gram_small(const float* sx, const float* sy, const float* gamma2,
+                                    float* out, int G, int M, int N, int D, void* stream) {
+  if (M == 0 || N == 0 || G == 0) return 0;
+  const dim3 block(32, 8);
+  const dim3 grid((N + 31) / 32, (M + 7) / 8, G);
+  rbf_gram_small_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(sx, sy, gamma2,
+                                                                              out, M, N, D);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -2,12 +2,14 @@
 saved checkpoint chain.
 
 Counterpart of ``vargp_tpu/experiments/analysis.py`` (the S-MNIST,
-P-MNIST, Split-Digits and toy analyses; the global-SVGP and comparison
-deliverables and the plots come later).  Task t's model is
-[ckpt0 .. ckpt_{t-1}] frozen plus ckpt_t, padded to the chain's length
-with ``pad_chain``; row t of a matrix is that model, column s the test
-split of task s.  The evaluation budget is the notebooks' (n_f = 50,
-n_var_samples = 20), entropies are divided by ln(out_size).
+P-MNIST, Split-Digits and toy analyses, and the global SVGP's S-MNIST and
+toy analyses; the comparison deliverables and the plots come later).
+Task t's VAR-GP model is [ckpt0 .. ckpt_{t-1}] frozen plus ckpt_t, padded
+to the chain's length with ``pad_chain``; the global SVGP's is ckpt_t
+alone (its predictions never read the earlier tasks).  Row t of a matrix
+is that model, column s the test split of task s.  The evaluation budget
+is the notebooks' (n_f = 50, n_var_samples = 20), entropies are divided
+by ln(out_size).
 
 Randomness: each cell draws its hyper-sample and function-sample noise
 once, from one ``torch.Generator`` on the device, cell after cell in row
@@ -16,7 +18,7 @@ uses one key per cell.  ``eval_draws`` yields the same draws again, so a
 cell can be replayed elsewhere (on the CPU, say).
 
 The default output file is ``analysis_torch.json`` beside the chain,
-never the minted ``analysis.json``; the toy's are
+never the minted ``analysis.json``; the toys' are
 ``toy_density_torch.json`` and ``density_grid_torch.npz``.
 """
 
@@ -29,6 +31,7 @@ import torch
 from vargp_tpu_torch import data
 from vargp_tpu_torch.kernels import MLPParams, RBFParams
 from vargp_tpu_torch.kernels.deep import DEFAULT_HIDDEN
+from vargp_tpu_torch.models import global_svgp as G
 from vargp_tpu_torch.models import vargp as V
 from vargp_tpu_torch.ops.device import resolve_device
 from vargp_tpu_torch.train.metrics import compute_acc_ent, compute_bwt
@@ -226,6 +229,105 @@ def analyze_toy(log_dir: str, n_tasks: int = 2, M: int = 20, out_json: str | Non
             prev = tuple(V.freeze_task(p) for p in chain[:t])
             p = V.predict(params, prev, x0, next(draws), cfg_eval, device=dev).cpu().numpy()
             retention.append(float(np.mean(p[np.arange(len(task0)), task0.targets])))
+    summary = dict(
+        density_retention=retention, task0_true_class_prob_final=retention[-1],
+        grid_n=n, n_f=n_f, n_var_samples=n_var_samples,
+    )
+    out_json = out_json or os.path.join(log_dir, "toy_density_torch.json")
+    with open(out_json, "w") as f:
+        json.dump(summary, f, indent=2)
+    print(json.dumps(summary))
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# The global SVGP
+# ---------------------------------------------------------------------------
+
+
+def global_params_template(cfg: G.GlobalSVGPConfig) -> G.GlobalSVGPParams:
+    """A tree of zero numpy arrays with the shapes of one global task's
+    parameters under ``cfg``."""
+    O, M, D = cfg.out_size, cfg.M, cfg.in_size
+    z = np.zeros
+    return G.GlobalSVGPParams(
+        z=z((O, M, D), np.float32), u_mean=z((O, M, 1), np.float32),
+        u_tril_vec=z((O, M * (M + 1) // 2), np.float32),
+        kernel=RBFParams(z((D + 1,), np.float32), z((D + 1,), np.float32)),
+    )
+
+
+def load_global_chain(log_dir: str, cfgs, *, device=None):
+    """[ckpt0 .. ckpt_{T-1}] of a global run, task t checked against
+    ``cfgs[t]``'s template (M may grow from task to task), as parameters
+    on ``device`` (None means the card)."""
+    dev = resolve_device(device)
+    chain = load_chain(log_dir, len(cfgs), [global_params_template(c) for c in cfgs])
+    return [params_from_numpy(p, device=dev)[0] for p in chain]
+
+
+def analyze_smnist_global(log_dir: str, data_dir=None, n_tasks: int = 5, M: int = 60,
+                          grow_per_task: int = 0, out_json: str | None = None, n_f: int = 50,
+                          n_var_samples: int = 20, batch_size: int = 512, seed: int = 0,
+                          device=None) -> dict:
+    """The T x T matrices of a global S-MNIST chain: row t is ckpt_t alone
+    (M + grow_per_task t rows a class), column s task s's test split.  Each
+    cell draws its noise once, cell after cell in row order, and every
+    batch of the cell predicts with it (the JAX analysis reuses one key for
+    a cell's batches)."""
+    dev = resolve_device(device)
+    cfgs = [G.GlobalSVGPConfig(M=M + grow_per_task * t, out_size=10, in_size=784)
+            for t in range(n_tasks)]
+    chain = load_global_chain(log_dir, cfgs, device=dev)
+    test_sets = _split_tasks(data.load_mnist(data_dir, train=False), n_tasks)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    acc = np.zeros((n_tasks, n_tasks))
+    ent = np.zeros((n_tasks, n_tasks))
+    with torch.no_grad():
+        for t in range(n_tasks):
+            cfg_eval = V.eval_budget_cfg(cfgs[t], n_f=n_f, n_var_samples=n_var_samples)
+            for s, test_set in enumerate(test_sets):
+                noise = next(eval_draws(gen, cfg_eval, 1, batch_size))
+
+                def predict(x):
+                    return G.predict(chain[t], None, torch.from_numpy(x).to(dev), noise,
+                                     cfg_eval, device=dev)
+
+                a, e = compute_acc_ent(test_set, predict, batch_size=batch_size)
+                acc[t, s] = a
+                ent[t, s] = e / np.log(cfg_eval.out_size)
+    return _write(summarize(acc, ent), log_dir, out_json)
+
+
+def analyze_toy_global(log_dir: str, n_tasks: int = 2, M: int = 20, out_json: str | None = None,
+                       n: int = 60, n_f: int = 50, n_var_samples: int = 20, data_seed: int = 0,
+                       seed: int = 0, device=None) -> dict:
+    """The global toy deliverable (M growing as M (t + 1)): each task's
+    predictive surfaces over an n x n grid of [-3, 3]^2
+    (``density_grid_torch.npz``) and the task-0 density retention
+    (``toy_density_torch.json``, or ``out_json``), as ``analyze_toy``
+    defines it, from ckpt_t alone.  Per task, the grid's noise and then the
+    retention's come from one generator seeded with ``seed``."""
+    dev = resolve_device(device)
+    cfgs = [G.GlobalSVGPConfig(M=M * (t + 1), out_size=4, in_size=2) for t in range(n_tasks)]
+    chain = load_global_chain(log_dir, cfgs, device=dev)
+    xs = np.linspace(-3.0, 3.0, n, dtype=np.float32)
+    gx, gy = np.meshgrid(xs, xs)
+    pts = torch.from_numpy(np.stack([gx.ravel(), gy.ravel()], axis=-1)).to(dev)
+    task0 = data.filter_by_class(data.make_toy_dataset(seed=data_seed), [0, 1])
+    x0 = torch.from_numpy(task0.data).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out, retention = [], []
+    with torch.no_grad():
+        for t, params in enumerate(chain):
+            cfg_eval = V.eval_budget_cfg(cfgs[t], n_f=n_f, n_var_samples=n_var_samples)
+            grid_noise = next(eval_draws(gen, cfg_eval, 1, n * n))
+            ret_noise = next(eval_draws(gen, cfg_eval, 1, len(task0)))
+            probs = G.predict(params, None, pts, grid_noise, cfg_eval, device=dev)
+            out.append(probs.cpu().numpy().reshape(n, n, -1))
+            p0 = G.predict(params, None, x0, ret_noise, cfg_eval, device=dev).cpu().numpy()
+            retention.append(float(np.mean(p0[np.arange(len(task0)), task0.targets])))
+    np.savez(os.path.join(log_dir, "density_grid_torch.npz"), gx=gx, gy=gy, probs=np.stack(out))
     summary = dict(
         density_retention=retention, task0_true_class_prob_final=retention[-1],
         grid_n=n, n_f=n_f, n_var_samples=n_var_samples,

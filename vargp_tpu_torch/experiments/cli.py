@@ -15,11 +15,6 @@ import sys
 
 # JAX commands still to port -> the ROADMAP item that ports them
 NOT_PORTED = {
-    "toy_global": "Queue A item 5 (global SVGP)",
-    "s_mnist_global": "Queue A item 5 (global SVGP)",
-    "p_mnist_global": "Queue A item 5 (global SVGP)",
-    "analyze_toy_global": "Queue A item 5 (global SVGP)",
-    "analyze_smnist_global": "Queue A item 5 (global SVGP)",
     "toy_retrain": "Queue A item 5 (retrain)",
     "regression": "Queue A item 5 (the Gaussian likelihood)",
     "compare_methods": "Queue A item 5 (the comparisons and plots)",
@@ -32,7 +27,7 @@ MULTI_PROCESS_FLAGS = ("coordinator_address", "num_processes", "process_id")
 
 
 def _commands():
-    from vargp_tpu_torch.experiments import analysis, vargp_run
+    from vargp_tpu_torch.experiments import analysis, global_run, vargp_run
 
     return {
         "toy": vargp_run.toy,
@@ -44,6 +39,11 @@ def _commands():
         "analyze_pmnist": analysis.analyze_pmnist,
         "analyze_sdigits": analysis.analyze_sdigits,
         "analyze_toy": analysis.analyze_toy,
+        "toy_global": global_run.toy_global,
+        "s_mnist_global": global_run.split_mnist,
+        "p_mnist_global": global_run.permuted_mnist,
+        "analyze_toy_global": analysis.analyze_toy_global,
+        "analyze_smnist_global": analysis.analyze_smnist_global,
     }
 
 

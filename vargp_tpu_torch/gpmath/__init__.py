@@ -3,9 +3,13 @@ of ``vargp_tpu/gpmath``."""
 
 from vargp_tpu_torch.gpmath.conditional import (
     ARPosterior,
+    MarginalCache,
     ar_joint_posterior,
     ar_joint_posterior_factored,
     ar_joint_posterior_fast,
+    gp_cond,
+    linear_joint,
+    linear_marginal_diag,
     whitened_marginal_diag,
     whitened_marginal_diag_factored,
 )
@@ -27,6 +31,7 @@ from vargp_tpu_torch.gpmath.tril import mat2trilvec, tril_dim, tril_size, vec2tr
 __all__ = [
     "ARPosterior",
     "DEFAULT_JITTER",
+    "MarginalCache",
     "add_jitter",
     "ar_joint_posterior",
     "ar_joint_posterior_factored",
@@ -34,6 +39,9 @@ __all__ = [
     "chol_solve",
     "cholesky",
     "diag_normal_kl",
+    "gp_cond",
+    "linear_joint",
+    "linear_marginal_diag",
     "mat2trilvec",
     "mm",
     "mmt",

@@ -14,15 +14,85 @@ its three forms:
   L^{-1} or by triangular solves; ``ar_joint_posterior_fast``: the
   closed-form block-LDL build), read by ``whitened_marginal_diag``.
 
-The reference-parity primitives of that module (``gp_cond``,
-``linear_joint``, ``linear_marginal_diag``) are not ported yet.
+and the reference-parity primitives of that module (``gp_cond``,
+``linear_joint``, ``linear_marginal_diag`` and its ``MarginalCache``),
+which factor through ``gpmath.cholesky`` (K7 on the card) and
+``tri_solve``.  No model path of either package calls them: they are the
+JAX package's test oracles for the fused path.
 """
 
 from typing import NamedTuple, Sequence
 
 import torch
 
-from vargp_tpu_torch.gpmath.linalg import mm_h, mtm_h, tri_half_split, tri_solve
+from vargp_tpu_torch.gpmath.linalg import cholesky, mm_h, mtm_h, tri_half_split, tri_solve
+
+
+# ---------------------------------------------------------------------------
+# Reference-parity primitives
+# ---------------------------------------------------------------------------
+
+
+def gp_cond(u, Kzz, Kzx, Kxx, Lz=None, Lz_Kzx=None):
+    """GP conditional p(f | u): mu = Kxz Kzz^{-1} u and
+    Sigma = Kxx - Kxz Kzz^{-1} Kzx, through the whitened factor
+    Lz^{-1} Kzx.  u (..., M, 1), Kzz (..., M, M), Kzx (..., M, N),
+    Kxx (..., N, N); Lz and Lz^{-1} Kzx may be passed in.  Returns
+    mu (..., N, 1) and Sigma (..., N, N)."""
+    if Lz is None:
+        Lz = cholesky(Kzz)
+    Lz_u = tri_solve(Lz, u)
+    if Lz_Kzx is None:
+        Lz_Kzx = tri_solve(Lz, Kzx)
+    mu = torch.einsum("...ij,...ik->...jk", Lz_Kzx, Lz_u)
+    Sigma = Kxx - torch.einsum("...ij,...ik->...jk", Lz_Kzx, Lz_Kzx)
+    return mu, Sigma
+
+
+def linear_joint(m, S, Kzx, Kzz, V, b):
+    """Joint of N(z; m, S) and N(x; A z + b, V), A = Kxz Kzz^{-1}:
+    mu = [m, A m + b], Sigma = [[S, S A^T], [A S, V + A S A^T]]."""
+    Lz = cholesky(Kzz)
+    Lz_m = tri_solve(Lz, m)
+    Lz_Kzx = tri_solve(Lz, Kzx)
+    Am = torch.einsum("...ij,...ik->...jk", Lz_Kzx, Lz_m)
+    Lz_S = tri_solve(Lz, torch.broadcast_to(S, torch.broadcast_shapes(S.shape, Lz.shape)))
+    AS = torch.einsum("...ij,...ik->...jk", Lz_Kzx, Lz_S)
+    SAt = AS.transpose(-2, -1)
+    Lz_SAt = tri_solve(Lz, SAt)
+    ASAt = torch.einsum("...ij,...ik->...jk", Lz_SAt, Lz_Kzx)
+    mu = torch.cat([torch.broadcast_to(m, Am.shape[:-2] + m.shape[-2:]), Am + b], dim=-2)
+    top = torch.cat([torch.broadcast_to(S, AS.shape[:-2] + S.shape[-2:]), SAt], dim=-1)
+    bot = torch.cat([AS, V + ASAt], dim=-1)
+    return mu, torch.cat([top, bot], dim=-2)
+
+
+class MarginalCache(NamedTuple):
+    Lz: torch.Tensor
+    Lz_Kzx: torch.Tensor
+
+
+def linear_marginal_diag(m, S, Kzz, Kzx, Kxx_diag, *, return_cache: bool = False):
+    """Diagonal marginal of the same linear-Gaussian product:
+    mu = A m, var = Kxx_diag - diag(A Kzx) + diag(A S A^T), S factored
+    here.  m (..., M, 1); returns mu and var (..., N), and with
+    ``return_cache`` the ``MarginalCache`` (Lz, Lz^{-1} Kzx)."""
+    Lz = cholesky(Kzz)
+    Lz_m = tri_solve(Lz, m)
+    Lz_Kzx = tri_solve(Lz, Kzx)
+    mu = torch.einsum("...ij,...ik->...jk", Lz_Kzx, Lz_m)[..., 0]
+    diag1 = torch.sum(torch.square(Lz_Kzx), dim=-2)
+    Lz_LS = tri_solve(Lz, cholesky(S))
+    C = torch.einsum("...ij,...ik->...jk", Lz_LS, Lz_Kzx)
+    var = Kxx_diag - diag1 + torch.sum(torch.square(C), dim=-2)
+    if return_cache:
+        return mu, var, MarginalCache(Lz=Lz, Lz_Kzx=Lz_Kzx)
+    return mu, var
+
+
+# ---------------------------------------------------------------------------
+# The fused path
+# ---------------------------------------------------------------------------
 
 
 class ARPosterior(NamedTuple):

@@ -133,10 +133,11 @@ def _check_supported(cfg: VARGPConfig) -> None:
         raise NotImplementedError(f"tril_layout={cfg.tril_layout!r} is not ported")
 
 
-def _theta_size(cfg: VARGPConfig) -> int:
+def _theta_size(cfg) -> int:
     """Inputs the RBF kernel sees: the MLP's features under DKL, else the
-    data's."""
-    return DEFAULT_FEATURES if cfg.dkl else cfg.in_size
+    data's (always the data's for a config with no ``dkl`` field, the
+    global SVGP's)."""
+    return DEFAULT_FEATURES if getattr(cfg, "dkl", False) else cfg.in_size
 
 
 def eval_budget_cfg(cfg: VARGPConfig, n_f: int | None = None,

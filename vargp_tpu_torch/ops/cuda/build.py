@@ -37,6 +37,7 @@ _SIGNATURES = {
     "vargp_diag_chol": (_P, _P, _I, _L, _I, _I, _P),  # in, out, G, batch stride, row stride, h
     "vargp_rbf_gram": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "vargp_rbf_gram_sym": (_P, _P, _P, _I, _I, _I, _P),  # sx, gamma2, out, G, M, D
+    "vargp_rbf_gram_small": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "vargp_diag_chol_chunked": (_P, _P, _I, _P),
     "vargp_chol": (_P, _P, _I, _I, _I, _P),  # K, L, G, S, cluster size, stream
     "vargp_chol_inv": (_P, _P, _P, _I, _I, _I, _P),

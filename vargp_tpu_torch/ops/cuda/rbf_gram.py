@@ -1,10 +1,14 @@
 """K5: generic RBF Gram on pre-scaled inputs (``csrc/rbf_gram.cu``).
 
 Replaces ``vargp_tpu/ops/pallas/rbf_gram.py::_gram_3d``, entered through
-``rbf_gram_pallas``.  Both kernels multiply on the tensor cores in 3xTF32
-(``csrc/rbf_mma.cuh``), f32 accuracy.  A CUDA tensor launches one; a CPU
+``rbf_gram_pallas``.  From D = 17 features the tile's two kernels
+multiply on the tensor cores in 3xTF32 (``csrc/rbf_mma.cuh``); up to
+D = 16 (``SMALL_D``: the toy's two inputs) a third kernel sums the
+squared differences in f32, one thread an output, since a 3xTF32 product
+is f32-accurate only inside a deep sum.  A CUDA tensor launches one; a CPU
 tensor takes :func:`rbf_gram_plain`, the einsum body of
-``_rbf_gram_impl`` (``rbf_gram.py:108-112``).
+``_rbf_gram_impl`` (``rbf_gram.py:108-112``), or up to SMALL_D the small
+kernel's sum of squared differences.
 """
 
 import torch
@@ -12,9 +16,20 @@ import torch
 from vargp_tpu_torch.ops.cuda.build import check_f32_contiguous, launch, on_cpu
 
 
+SMALL_D = 16  # the most features the small kernel takes
+
+
 def rbf_gram_plain(sx: torch.Tensor, sy: torch.Tensor,
                    gamma2: torch.Tensor) -> torch.Tensor:
-    """sx (G, M, D), sy (G, N, D), gamma2 (G,) -> (G, M, N)."""
+    """sx (G, M, D), sy (G, N, D), gamma2 (G,) -> (G, M, N): d^2 as
+    |a|^2 + |b|^2 - 2 <a, b>, or up to SMALL_D features, as the small
+    kernel takes it, the squared differences summed feature by feature."""
+    if sx.shape[-1] <= SMALL_D:
+        d2 = sx.new_zeros((*sx.shape[:-1], sy.shape[-2]))
+        for k in range(sx.shape[-1]):
+            d = sx[..., :, None, k] - sy[..., None, :, k]
+            d2 = d2 + d * d
+        return gamma2[:, None, None] * torch.exp(-0.5 * d2)
     xx = torch.sum(sx * sx, dim=-1)
     yy = torch.sum(sy * sy, dim=-1)
     xy = torch.einsum("gmd,gnd->gmn", sx, sy)
@@ -38,7 +53,10 @@ def rbf_gram(sx: torch.Tensor, sy: torch.Tensor, gamma2: torch.Tensor) -> torch.
     the symmetric kernel computes each distinct entry once and mirrors it:
     the Gram is bitwise symmetric and its diagonal is gamma2 exactly.  Any
     other pair, equal values in two tensors included, takes the cross
-    kernel, whose (i, j) and (j, i) agree only to rounding."""
+    kernel, whose (i, j) and (j, i) agree only to rounding.  Up to SMALL_D
+    features the small kernel takes every pair (a self-Gram is bitwise
+    symmetric there, gamma2 on its diagonal, and counts as a symmetric
+    launch)."""
     if on_cpu(sx, sy, gamma2):
         return rbf_gram_plain(sx, sy, gamma2)
     G, M, D = sx.shape
@@ -54,7 +72,11 @@ def rbf_gram(sx: torch.Tensor, sy: torch.Tensor, gamma2: torch.Tensor) -> torch.
     out = torch.empty((G, M, N), device=sx.device, dtype=torch.float32)
     if out.numel() == 0:
         return out
-    if same_storage(sx, sy):
+    if D <= SMALL_D:
+        launch("vargp_rbf_gram_small", sx.device, sx.data_ptr(), sy.data_ptr(),
+               gamma2.data_ptr(), out.data_ptr(), G, M, N, D)
+        rbf_gram.sym_launches += int(same_storage(sx, sy))
+    elif same_storage(sx, sy):
         launch("vargp_rbf_gram_sym", sx.device, sx.data_ptr(), gamma2.data_ptr(),
                out.data_ptr(), G, M, D)
         rbf_gram.sym_launches += 1

@@ -1,15 +1,17 @@
 """Carry parameters, optimizer state and noise between numpy and the port.
 
 ``params_from_numpy`` reads the JAX package's ``VARGPParams``,
-``TaskPosterior`` and ``RBFPrior`` by field name, after the caller has run
-``np.asarray`` on every leaf; ``opt_state_from_numpy`` reads an optax
+``TaskPosterior`` and ``RBFPrior``, or the global SVGP's
+``GlobalSVGPParams`` and ``GlobalPrev``, by field name, after the caller
+has run ``np.asarray`` on every leaf; ``opt_state_from_numpy`` reads an optax
 Yogi/Adam state (``count``, ``mu``, ``nu``) the same way, or the phi-grouped
 chain's state (a tuple holding that state and, with the freeze knob, a
 ``scale``).  Nothing of the
 JAX package is imported.  ``params_to_numpy`` and ``opt_state_to_numpy``
 go the other way, to numpy leaves in the JAX package's tree order
 (z, u_mean, u_tril_vec, kernel.log_mean, kernel.log_logvar and, under the
-deep kernel, phi.weights[0..2], phi.biases[0..2]).
+deep kernel, phi.weights[0..2], phi.biases[0..2]; the global SVGP's tree
+has no phi field).
 ``noise_for_loss`` / ``noise_for_predict`` build the ``noise`` dict of
 ``models.vargp`` from the draws the JAX path makes (hyper samples, prefix
 draws, function samples).
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from vargp_tpu_torch.kernels import MLPParams, RBFParams, RBFPrior
+from vargp_tpu_torch.models.global_svgp import GlobalPrev, GlobalSVGPParams
 from vargp_tpu_torch.models.vargp import TaskPosterior, VARGPParams
 from vargp_tpu_torch.ops.device import resolve_device
 from vargp_tpu_torch.train.optim import GroupState, OptState, tree_leaves, tree_unflatten
@@ -31,7 +34,14 @@ def to_tensor(a, device=None) -> torch.Tensor:
     return torch.tensor(np.asarray(a), dtype=torch.float32, device=resolve_device(device))
 
 
-def _vargp_params(tree, t) -> VARGPParams:
+def _vargp_params(tree, t) -> VARGPParams | GlobalSVGPParams:
+    """The port's parameter tree of ``tree``'s fields: a tree without a
+    ``phi`` field is the global SVGP's."""
+    if not hasattr(tree, "phi"):
+        return GlobalSVGPParams(
+            z=t(tree.z), u_mean=t(tree.u_mean), u_tril_vec=t(tree.u_tril_vec),
+            kernel=RBFParams(t(tree.kernel.log_mean), t(tree.kernel.log_logvar)),
+        )
     phi = getattr(tree, "phi", None)
     if phi is not None:
         phi = MLPParams(tuple(map(t, phi.weights)), tuple(map(t, phi.biases)))
@@ -43,21 +53,26 @@ def _vargp_params(tree, t) -> VARGPParams:
 
 def params_from_numpy(params, prev: Sequence = (), prior=None, *, device=None):
     """(VARGPParams, tuple of TaskPosterior, RBFPrior or None) on ``device``;
-    the deep kernel's phi is carried when the tree has one."""
+    the deep kernel's phi is carried when the tree has one.  For the global
+    SVGP: (GlobalSVGPParams, GlobalPrev or None, RBFPrior or None), ``prev``
+    one ``GlobalPrev`` (a tree with a ``z`` field) or None."""
     dev = resolve_device(device)
 
     def t(a):
         return to_tensor(a, dev)
 
     p = _vargp_params(params, t)
-    chain = tuple(TaskPosterior(t(e.z), t(e.u_mean), t(e.u_tril)) for e in prev)
+    if prev is None or hasattr(prev, "z"):
+        chain = None if prev is None else GlobalPrev(t(prev.z), t(prev.u_mean), t(prev.u_tril))
+    else:
+        chain = tuple(TaskPosterior(t(e.z), t(e.u_mean), t(e.u_tril)) for e in prev)
     pr = None if prior is None else RBFPrior(t(prior.log_mean), t(prior.log_logvar))
     return p, chain, pr
 
 
 def opt_state_from_numpy(state, *, device=None):
-    """An optax ``ScaleByAdamState`` (count, and mu / nu of VARGPParams'
-    structure) as the port's ``OptState`` on ``device``; the phi-grouped
+    """An optax ``ScaleByAdamState`` (count, and mu / nu of VARGPParams' or
+    GlobalSVGPParams' structure) as the port's ``OptState`` on ``device``; the phi-grouped
     chain's state (a tuple of the parts' states) as a ``GroupState``, its
     phi scale 1 when the chain holds none."""
     dev = resolve_device(device)
@@ -104,3 +119,14 @@ def noise_for_loss(hyper_eps, prefix_eps, lik_eps, *, device=None) -> dict:
 def noise_for_predict(hyper_eps, lik_eps, *, device=None) -> dict:
     """``noise`` for ``predict``: hyper_eps (n_v, D+1), lik_eps (H, n_f, O, B)."""
     return noise_for_loss(hyper_eps, None, lik_eps, device=device)
+
+
+def noise_for_global_loss(hyper_eps, lik_eps, reg_eps=None, *, device=None) -> dict:
+    """``noise`` for ``models.global_svgp.loss``: hyper_eps (n_v, D+1),
+    lik_eps (H, n_f, O, B) and, with a previous task, reg_eps
+    (n_v, H, O, M_prev); without reg_eps, the noise of its ``predict``."""
+    dev = resolve_device(device)
+    noise = {"hyper_eps": to_tensor(hyper_eps, dev), "lik_eps": to_tensor(lik_eps, dev)}
+    if reg_eps is not None:
+        noise["reg_eps"] = to_tensor(reg_eps, dev)
+    return noise
