@@ -91,7 +91,26 @@ result) on a failure:
    evaluated split replayed on the CPU, and the chain reload:
    ``analyze_smnist_global`` on its checkpoints on the card and on the CPU
    with the card's draws;
-10. timings: each kernel, its plain version and one PyTorch yardstick call
+10. the VAR-GP Retrain ablation and the Gaussian-likelihood regression:
+   K5's small kernel (up to 16 features) at their shapes (SMALL_GRAMS:
+   Retrain's chain K_zz (12, 40, 2), K_zx against the batch, K(z_all, z~)
+   and K(z~, z~), task 0's K_zx; the regression's step and final-RMSE
+   Grams at D = 1), each against its plain version and float64, the rows
+   of K(z_all, z~) that a task's first step shares with z~ bitwise equal
+   to K(z~, z~); one Retrain ``elbo_step`` at task 0 and at task 1's
+   first step (K5 twice / four times, K7 once / three times), its pieces
+   and every gradient against the CPU's, again after 5 steps; K7 at
+   (12, 40, 40), (12, 20, 20), (3, 24, 24), (16, 24, 24) and on the
+   first step's conditional covariance (symmetrised, the jitter added),
+   NaN on a non-positive pivot at each shape; ``retrain_run.toy``'s two
+   tasks at 30 epochs (RETRAIN_PROTOCOL): the launches, finite values,
+   the ELBO falling, the checkpoints bitwise, the last evaluation replayed
+   on the CPU; the minted ``results/toy_retrain_full/ckpt1.npz`` (the one
+   file under ``results/`` read) predicted on the toy's 4 classes on the
+   card and on the CPU with the card's draws; ``regression(epochs=300,
+   M=16)``: RMSE below 0.3, the launches, its first steps' losses on the
+   CPU with the card's draws;
+11. timings: each kernel, its plain version and one PyTorch yardstick call
    the port never makes, in device time per call (``torch.profiler``; when
    a trace comes back with no device event, CUDA events with the host
    queued ahead of the card), and
@@ -112,11 +131,14 @@ result) on a failure:
    default step's kernel launches and device-busy time under
    ``torch.profiler``; K5 and K7 also at the global shapes of phase 9
    (nested as at_<label>), and the global step's forward, forward +
-   backward, whole step, launches, device-busy time and idle share.
+   backward, whole step, launches, device-busy time and idle share; K5
+   and K7 at the shapes of phase 10 too, and the same for the Retrain
+   step (task 0 and 1) and the regression's step.
 
 The line before the last two is one JSON object ``{"kernels": [...]}``; then
 the card's ``nvidia-smi`` name and power limit; the last line is
-``{"ok": true, "device": {...}}``.  Nothing under ``results/`` is read.
+``{"ok": true, "device": {...}}``.  Under ``results/`` only
+``toy_retrain_full/ckpt1.npz`` is read.
 """
 
 import contextlib
@@ -199,6 +221,47 @@ GLOBAL_GRAMS = {
     "toy global K_zx": (12, 40, 512, 2),
 }
 GLOBAL_CHOL = {"S-MNIST global": (30, 60), "P-MNIST global": (30, 100), "toy global": (12, 40)}
+
+# One elbo_step of toy_retrain at full width (tasks of 2 classes, O = 4,
+# D = 2, M = 20 a task, B = 512: a task's 100 rows padded; H = 3, n_f = 10;
+# Yogi at lr 1e-2, beta 1): at task 0 (K5 twice, one symmetric; K7 once)
+# and at task 1's first step, the previous task trainable again and frozen
+# (z_all[:20] = z~: K5 four times, two symmetric; K7 three times), then
+# after `steps` steps.  The protocol phase runs toy_retrain's two tasks at
+# 30 epochs, an evaluation every 10: the JAX reference's task-0 accuracy
+# there is 0.37 (results/toy_retrain_full; it passes 0.9 only after
+# 980-1500 epochs over seeds 0-2), so the phase holds the ELBO to falling
+# (a task's last 5 steps below elbo_drop of its first 5; the port on the
+# CPU falls 20-60x over seeds 0-2) and the last evaluation to the CPU's
+# (accuracies within one row of 200).  The regression runs
+# regression(epochs=300, M=16) (RMSE below 0.3, as the JAX package's test
+# asks) and its first steps again on the CPU.
+RETRAIN_STEP = dict(M=20, O=4, D=2, B=512, H=3, n_f=10, lr=1e-2, beta=1.0, steps=5)
+RETRAIN_LAUNCHES = {"task 0": {"rbf_gram": 2, "rbf_gram_sym": 1, "cholesky": 1},
+                    "task 1": {"rbf_gram": 4, "rbf_gram_sym": 2, "cholesky": 3}}
+RETRAIN_PROTOCOL = dict(n_tasks=2, epochs=30, eval_interval=10, seed=SEED,
+                        eval_epochs=[10, 20, 30], elbo_drop=0.5, count_tol=0.005)
+REGRESSION = dict(epochs=300, M=16, seed=SEED, max_rmse=0.3, replay_steps=3)
+# K5's small kernel at the Retrain and regression paths' shapes, (G, S, N,
+# D, shared): N = 0 a self-Gram; `shared` rows of a cross Gram's S repeat
+# its N (K(z_all, z~) at a task's first step).  Retrain at task 1: the
+# chain's K_zz (12, 40, 2), K_zx against the batch, K(z_all, z~) and
+# K(z~, z~); at task 0 K_zz is K(z~, z~)'s shape and K_zx (12, 20 x 512);
+# the regression's step (H = 3, M = 24, N = 256, D = 1) and its final RMSE
+# (H = 16).  K7 at their factors' shapes (G, S).
+SMALL_GRAMS = {
+    "retrain K_zz": (12, 40, 0, 2, 0),
+    "retrain K_zx": (12, 40, 512, 2, 0),
+    "retrain K(z_all, z~)": (12, 40, 20, 2, 20),
+    "retrain K(z~, z~)": (12, 20, 0, 2, 0),
+    "retrain task 0 K_zx": (12, 20, 512, 2, 0),
+    "regression K_zz": (3, 24, 0, 1, 0),
+    "regression K_zx": (3, 24, 256, 1, 0),
+    "regression RMSE K_zz": (16, 24, 0, 1, 0),
+    "regression RMSE K_zx": (16, 24, 256, 1, 0),
+}
+SMALL_CHOL = {"retrain chain": (12, 40), "retrain frozen": (12, 20), "regression": (3, 24),
+              "regression RMSE": (16, 24)}
 
 # H100 SXM rates for the bound (NVIDIA data sheet): f32 on the CUDA cores
 # and HBM3 bandwidth.
@@ -1952,6 +2015,523 @@ def time_global_training(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the VAR-GP Retrain ablation and the Gaussian-likelihood regression
+# ---------------------------------------------------------------------------
+
+
+def small_gram_inputs(rng, G, S, N, D, device, shared=0):
+    """K5's inputs at the Retrain toy's (D = 2: rows of the 4-cluster toy)
+    and the regression's (D = 1: its x in [-3, 3]) shapes: G sets of S
+    rows (and N more), each set scaled by its own lengthscales near 0.5
+    (the toy's initial exp(log 0.5)) varying by 20% across sets and
+    features, and gamma2 (G,) near 1.  With ``shared`` the first
+    ``shared`` rows of the S repeat the N rows (z_all[:c] = z~ at a task's
+    first step)."""
+    from vargp_tpu_torch import data
+    from vargp_tpu_torch.experiments.regression import _make_data
+
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    pool = data.make_toy_dataset(seed=0).data if D == 2 else _make_data(
+        np.random.default_rng(SEED))[0]
+    rows = pool[rng.integers(0, len(pool), G * (S + N))].reshape(G, S + N, D)
+    if shared:
+        rows[:, :shared] = rows[:, S:S + shared]
+    scaled = rows / (0.5 * np.exp(0.2 * rng.standard_normal((G, 1, D))))
+    gamma2 = t(np.exp(0.2 * rng.standard_normal(G)))
+    sz = t(scaled[:, :S])
+    return sz, (sz if N == 0 else t(scaled[:, S:])), gamma2
+
+
+def check_k5_small(dev):
+    """K5's small kernel at the Retrain and regression shapes
+    (SMALL_GRAMS) against its plain version and against float64
+    (check_f64, self-Grams off the diagonal), each launch counted; every
+    self-Gram bitwise symmetric with gamma2 on its diagonal; and the
+    shared entries bitwise equal: K(z~, z~) and the rows of K(z_all, z~)
+    that z_all shares with z~, as a task's first step hands them over.
+    Returns the largest error, the float64 errors and the inputs."""
+    from vargp_tpu_torch.ops.cuda.rbf_gram import rbf_gram, rbf_gram_plain
+
+    rng = np.random.default_rng(SEED + 10)
+    err, f64, inputs = 0.0, {}, {}
+    for label, (G, S, N, D, shared) in SMALL_GRAMS.items():
+        a, b, g = small_gram_inputs(rng, G, S, N, D, dev, shared)
+        inputs[label] = (a, b, g)
+        sym = a is b
+        before, before_sym = rbf_gram.launches, rbf_gram.sym_launches
+        K = rbf_gram(a, b, g)
+        torch.cuda.synchronize()
+        if (rbf_gram.launches, rbf_gram.sym_launches) != (before + 1, before_sym + int(sym)):
+            raise AssertionError(f"K5 {label}: the wrong launch (symmetric expected: {sym})")
+        ref = rbf_gram_plain(a, b, g)
+        e = max_abs_err(K, ref)
+        check(f"K5 rbf_gram {label} {tuple(K.shape)} (D = {D}, "
+              f"{'symmetric' if sym else 'cross'} launch)", e, TOL_GRAM * float(g.max()),
+              float(ref.abs().max()))
+        eye = check_symmetric(f"K5 {label}", K, ref, g) if sym else None
+        err = max(err, e)
+        f64[label] = check_f64(f"K5 rbf_gram {label}{', off the diagonal' if sym else ''}", K,
+                               rbf_gram_plain, rbf_gram_1xtf32, (a, b, g),
+                               keep=None if eye is None else ~eye)
+        if shared:
+            Ktt = rbf_gram(b, b, g)
+            if not torch.equal(K[:, :shared], Ktt):
+                raise AssertionError(f"K5 {label}: the rows shared with z~ differ from K(z~, z~) "
+                                     f"by {max_abs_err(K[:, :shared], Ktt)}")
+            print(f"  K5 {label}: its first {shared} rows (z_all[:c] = z~) bitwise equal to "
+                  f"K(z~, z~) {tuple(Ktt.shape)} (the symmetric launch)")
+        del K, ref
+    return err, f64, inputs
+
+
+def retrain_inputs(device, task=1, seed=SEED):
+    """A toy_retrain step at full width on ``device``, from a numpy seed:
+    task 1 (``task=1``) at its first step, the previous task's raw
+    parameters (20 toy rows of classes 0-1 a class, random u_mean,
+    u_tril_vec near the identity's) trainable again and frozen into the
+    snapshot, so the conditional covariance cancels to the jitter; or task
+    0 alone.  The kernel near the toy's init, the prior the previous
+    kernel's; a batch of the task's 100 rows padded to 512 zero-weight
+    rows; the step's noise."""
+    from vargp_tpu_torch import data
+    from vargp_tpu_torch.gpmath import tril_size
+    from vargp_tpu_torch.kernels import RBFParams
+    from vargp_tpu_torch.models import vargp_retrain as R
+    from vargp_tpu_torch.train import loop as TL
+
+    f = RETRAIN_STEP
+    O, M, D, B, H, n_f = f["O"], f["M"], f["D"], f["B"], f["H"], f["n_f"]
+    cfg = R.RetrainConfig(M=M, out_size=O, in_size=D, n_f=n_f, n_var_samples=H)
+    rng = np.random.default_rng(seed + task)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    toy = data.make_toy_dataset(seed=0)
+    rows = lambda ds: t(ds.data[rng.integers(0, len(ds), (O, M))])
+    eye_vec = np.eye(M)[np.tril_indices(M)]
+    chain, prior_from = (), None
+    if task:
+        chain = (R.TaskRaw(z=rows(data.filter_by_class(toy, [0, 1])),
+                           u_mean=t(0.5 * rng.standard_normal((O, M, 1))),
+                           u_tril_vec=t(eye_vec + 0.3 * rng.standard_normal((O, tril_size(M))))),)
+        prior_from = RBFParams(t(np.log(0.5) + 0.1 * rng.standard_normal(D + 1)),
+                               t(np.full(D + 1, -2.5)))
+    train = data.filter_by_class(toy, [2 * task, 2 * task + 1])
+    params, prior, frozen = R.init_params(t(rng.standard_normal(D + 1)),
+                                          t(rng.standard_normal((O, M, 1))), rows(train), cfg,
+                                          prev_chain=chain, kernel_prior_from=prior_from)
+    x, y, w = TL.pad_dataset_to_device(train.data, train.targets, B, device=device)
+    S, c = M * (task + 1), M * task
+    noise = {"hyper_eps": t(rng.standard_normal((H, D + 1))),
+             "lik_eps": t(rng.standard_normal((H, n_f, O, B)))}
+    if task:
+        noise["u_eps"] = t(rng.standard_normal((H, H, O, S)))
+        noise["ut_eps"] = t(rng.standard_normal((H, H, H, O, c)))
+    opt = TL.make_optimizer(TL.TrainHyperparams(lr=f["lr"]))
+    return dict(cfg=cfg, params=params, frozen=frozen, prior=prior, x=x, y=y, w=w, noise=noise,
+                n_train=float(len(train)), beta=f["beta"], opt=opt, device=device)
+
+
+def retrain_grads(t):
+    """The Retrain ELBO's three pieces and every parameter leaf's gradient."""
+    from vargp_tpu_torch.models import vargp_retrain as R
+    from vargp_tpu_torch.train.optim import tree_leaves, tree_unflatten
+
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(t["params"])]
+    pieces = R.loss(tree_unflatten(t["params"], leaves), t["frozen"], t["prior"], t["x"], t["y"],
+                    t["noise"], t["cfg"], weights=t["w"], device=t["device"])
+    klh, klu, nll = pieces
+    total = t["beta"] * klh + klu + t["n_train"] / float(t["w"].sum()) * nll
+    return [v.detach() for v in pieces], torch.autograd.grad(total, leaves)
+
+
+def retrain_step(t, opt_state=None):
+    from vargp_tpu_torch.experiments import retrain_run as RR
+
+    state = t["opt"].init(t["params"]) if opt_state is None else opt_state
+    return RR.elbo_step(t["params"], state, t["frozen"], t["prior"], t["x"], t["y"], t["w"],
+                        t["noise"], cfg=t["cfg"], opt=t["opt"], beta=t["beta"],
+                        n_train=t["n_train"], device=t["device"])
+
+
+def compare_retrain(label, t, c):
+    """The three ELBO pieces and every gradient of ``t`` (the card) against
+    ``c`` (the CPU) on the same parameters and noise, to the global step's
+    limits."""
+    pieces, grads = retrain_grads(t)
+    cpu_pieces, cpu_grads = retrain_grads(c)
+    for n, g, r in zip(("kl_hypers", "kl_u", "nll"), pieces, cpu_pieces):
+        g, r = float(g), float(r)
+        rel = abs(g - r) / max(abs(r), 1e-30)
+        print(f"  {label} {n}: card {g!r} cpu {r!r}, rel err {rel:.3e} (tol {TOL_E2E_REL:.0e})")
+        if not (rel <= TOL_E2E_REL and math.isfinite(g)):
+            raise AssertionError(f"{label} {n}: card and CPU differ by {rel} (relative)")
+    worst = 0.0
+    for leaf, g, r in zip(leaf_names(t["params"]), grads, cpu_grads):
+        scale = float(r.abs().max())
+        rel = max_abs_err(g.cpu(), r) / max(scale, 1e-30)
+        worst = max(worst, rel)
+        if not (rel <= TOL_GRAD_REL and bool(torch.isfinite(g).all())):
+            raise AssertionError(f"{label}: gradient of {leaf} differs by {rel} of its scale")
+    print(f"  {label}: every gradient leaf card vs CPU within {worst:.3e} of its largest "
+          f"magnitude (tol {TOL_GRAD_REL:.0e})")
+
+
+def check_retrain_step(dev):
+    """One Retrain elbo_step on the card at task 0 and at task 1's first
+    step, its launches counted (K5 twice, one symmetric, and K7 once at
+    task 0; K5 four times, two symmetric, and K7 three times at task 1),
+    the pieces and gradients against the CPU's; then the same comparison
+    after 5 steps on the card, at the card's parameters.  Returns the
+    launches per step."""
+    from vargp_tpu_torch import gpmath
+    from vargp_tpu_torch.kernels import gram, sample_hypers
+    from vargp_tpu_torch.models import vargp_retrain as R
+
+    out = {}
+    for task, label in ((0, "task 0"), (1, "task 1")):
+        t, c = retrain_inputs(dev, task), retrain_inputs(torch.device("cpu"), task)
+        reset_counts()
+        params, state, loss, _ = retrain_step(t)
+        torch.cuda.synchronize()
+        out[label] = read_counts()
+        want = {k: 0 for k in counters()}
+        want.update(RETRAIN_LAUNCHES[label])
+        print(f"  retrain {label}: one elbo_step, launches {out[label]}, loss {float(loss)!r}")
+        if out[label] != want:
+            raise AssertionError(f"retrain {label}: launches {out[label]}, expected {want}")
+        compare_retrain(f"retrain {label}, step 0", t, c)
+        if not task:
+            continue
+        for _ in range(RETRAIN_STEP["steps"] - 1):
+            params, state, loss, _ = retrain_step(dict(t, params=params), state)
+        t = dict(t, params=params)
+        c = dict(c, params=to_cpu(params))
+        compare_retrain(f"retrain {label}, after {RETRAIN_STEP['steps']} steps", t, c)
+        # the conditional covariance at the first step, as the model hands it to K7
+        t0 = retrain_inputs(dev, task)
+        with torch.no_grad():
+            theta = sample_hypers(t0["params"].kernel, t0["noise"]["hyper_eps"])
+            z_all, L, _ = R._chain(theta, t0["params"].tasks, t0["cfg"].jitter)
+            z_t = t0["frozen"][0].z
+            W = gpmath.tri_solve(L, gram(theta, z_all, z_t))
+            cov = gram(theta, z_t) - torch.einsum("...mb,...mc->...bc", W, W)
+            out["cond_cov"] = gpmath.add_jitter(0.5 * (cov + cov.transpose(-1, -2)),
+                                               t0["cfg"].jitter).reshape(-1, *cov.shape[-2:])
+    return out
+
+
+@contextlib.contextmanager
+def recorded_retrain():
+    """Wrap the Retrain driver's ``train_task``, train block and evaluation
+    so that each call is recorded; the functions run unchanged."""
+    from vargp_tpu_torch.experiments import retrain_run as RR
+
+    rec = {"params": [], "infos": [], "losses": [], "evals": [], "last_eval": None}
+    orig = (RR.train_task, RR.train_block, RR.accuracy)
+
+    def train_task(*a, **kw):
+        params, info = orig[0](*a, **kw)
+        rec["params"].append(params)
+        rec["infos"].append(info)
+        return params, info
+
+    def train_block(*a, **kw):
+        out = orig[1](*a, **kw)
+        rec["losses"].append(out[2])
+        return out
+
+    def accuracy(*a, **kw):
+        out = orig[2](*a, **kw)
+        rec["evals"].append(out)
+        rec["last_eval"] = (a, kw, out)
+        return out
+
+    RR.train_task, RR.train_block, RR.accuracy = train_task, train_block, accuracy
+    try:
+        yield rec
+    finally:
+        RR.train_task, RR.train_block, RR.accuracy = orig
+
+
+def check_retrain_protocol(dev, smi):
+    """toy_retrain's two tasks through the drivers' entry point on the card
+    (RETRAIN_PROTOCOL), the launches counted around the run: every logged
+    accuracy and every step's ELBO finite, the evaluations at their epochs,
+    the ELBO falling within each task, the checkpoints reloaded bitwise,
+    and the last evaluation replayed on the CPU with its own draws."""
+    from vargp_tpu_torch.experiments import retrain_run as RR
+    from vargp_tpu_torch.models import vargp_retrain as R
+    from vargp_tpu_torch.train.optim import tree_leaves
+    from vargp_tpu_torch.utils.checkpoint import load_pytree
+
+    pr = RETRAIN_PROTOCOL
+    T = pr["n_tasks"]
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d, recorded_retrain() as rec:
+        reset_counts()
+        t0 = time.perf_counter()
+        params, summaries = RR.toy(epochs=pr["epochs"], eval_interval=pr["eval_interval"],
+                                   n_tasks=T, seed=pr["seed"], log_dir=d, device=dev)
+        torch.cuda.synchronize()
+        run_wall = time.perf_counter() - t0
+        launches = read_counts()
+        with open(os.path.join(d, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        cfg = R.RetrainConfig(M=RETRAIN_STEP["M"], out_size=4, in_size=2)
+        loaded = [load_pytree(os.path.join(d, f"ckpt{t}.npz"), R.params_template(cfg, t + 1))
+                  for t in range(T)]
+    steps = [info["steps"] for info in rec["infos"]]
+    sps = [info["steps_per_sec"] for info in rec["infos"]]
+    n_eval = len(rec["evals"])
+    print(f"  toy_retrain, {T} tasks, {pr['epochs']} epochs: {run_wall:.3f} s, steps {steps}, "
+          f"{n_eval} evaluations (one 512-row batch each); launches {launches}")
+    print(f"  steps_per_sec per task {sps}; final accuracies {summaries}; {smi}")
+    losses = torch.cat(rec["losses"]).cpu()
+    if not (all(math.isfinite(r["value"]) for r in rows) and bool(torch.isfinite(losses).all())):
+        raise AssertionError("retrain protocol: a logged accuracy or a step's ELBO is not finite")
+    start = 0
+    for t in range(T):
+        evals = [(r["step"], r["value"]) for r in rows if r["tag"] == f"task{t}/test/acc"]
+        task_losses = losses[start:start + steps[t]]
+        start += steps[t]
+        first, last = float(task_losses[:5].mean()), float(task_losses[-5:].mean())
+        print(f"  task {t}: test accuracy at its evaluations {evals}; ELBO over its first 5 "
+              f"steps {first!r}, its last 5 {last!r}")
+        if [e for e, _ in evals] != pr["eval_epochs"]:
+            raise AssertionError(f"retrain protocol task {t}: evaluations at {evals}")
+        if not last < pr["elbo_drop"] * first:
+            raise AssertionError(f"retrain protocol task {t}: the ELBO fell from {first} to "
+                                 f"{last}, expected below {pr['elbo_drop']} of it")
+    # a step: K5 2 (1 symmetric), K7 1 at task 0; K5 4 (2 symmetric), K7 3
+    # after; an evaluation (one batch): K5 2 (1 symmetric), K7 1
+    want = {k: 0 for k in counters()}
+    want.update(rbf_gram=2 * steps[0] + 4 * sum(steps[1:]) + 2 * n_eval,
+                rbf_gram_sym=steps[0] + 2 * sum(steps[1:]) + n_eval,
+                cholesky=steps[0] + 3 * sum(steps[1:]) + n_eval)
+    if launches != want:
+        raise AssertionError(f"retrain protocol: launches {launches}, expected {want}")
+    for t, (p, q) in enumerate(zip(rec["params"], loaded)):
+        for n, a, b in zip(leaf_names(p), tree_leaves(p), tree_leaves(q)):
+            if not np.array_equal(a.cpu().numpy(), b):
+                raise AssertionError(f"retrain protocol: task {t} checkpoint leaf {n} not bitwise")
+    # the last evaluation (task 1's final accuracy) again on the CPU
+    (p, ds, noise, cfg_e, bs), kw, acc = rec["last_eval"]
+    cpu_acc = RR.accuracy(to_cpu(p), ds, to_cpu(noise), cfg_e, bs, device="cpu")
+    x0 = torch.from_numpy(np.ascontiguousarray(ds.data[:bs]))
+    x0 = torch.cat([x0, x0.new_zeros((bs - len(x0), x0.shape[1]))]) if len(x0) < bs else x0
+    with torch.no_grad():
+        card_b0 = R.predict(p, x0.to(dev), noise, cfg_e, device=dev).cpu()
+        cpu_b0 = R.predict(to_cpu(p), x0, to_cpu(noise), cfg_e, device="cpu")
+    check("retrain protocol: the last evaluation's batch, card vs CPU",
+          max_abs_err(card_b0, cpu_b0), TOL_PROBS, float(cpu_b0.max()))
+    print(f"  that evaluation's accuracy: card {acc!r} CPU {cpu_acc!r} of {len(ds)} rows")
+    if not abs(acc - cpu_acc) <= pr["count_tol"]:
+        raise AssertionError(f"retrain protocol: accuracies {acc} and {cpu_acc} differ")
+    print(f"  retrain protocol phase wall time {time.perf_counter() - t_phase:.3f} s; {smi}")
+    return dict(launches=launches, steps=steps, steps_per_sec=sps, wall_s=run_wall)
+
+
+def check_minted_retrain(dev):
+    """``results/toy_retrain_full/ckpt1.npz`` (the JAX package's minted
+    Retrain chain, both tasks) reloaded through the port's template on the
+    card: its predictions on the toy's 4 classes (200 rows, one 512-row
+    batch) at the model's budgets, from a generator's draws, against the
+    CPU's on the same draws; accuracy and mean entropy printed."""
+    from vargp_tpu_torch import data
+    from vargp_tpu_torch.models import vargp_retrain as R
+    from vargp_tpu_torch.train.metrics import compute_acc_ent
+    from vargp_tpu_torch.utils.checkpoint import load_pytree
+    from vargp_tpu_torch.utils.convert import params_from_numpy
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "results",
+                        "toy_retrain_full", "ckpt1.npz")
+    cfg = R.RetrainConfig(M=RETRAIN_STEP["M"], out_size=4, in_size=2)
+    tree = load_pytree(path, R.params_template(cfg, 2))
+    card, cpu = (params_from_numpy(tree, device=d)[0] for d in (dev, "cpu"))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    noise = {"hyper_eps": torch.randn((3, 3), generator=gen, device=dev),
+             "lik_eps": torch.randn((3, 10, 4, 512), generator=gen, device=dev)}
+    toy = data.make_toy_dataset(seed=0)
+    x = torch.zeros((512, 2))
+    x[:len(toy)] = torch.from_numpy(toy.data)
+    reset_counts()
+    with torch.no_grad():
+        probs = R.predict(card, x.to(dev), noise, cfg, device=dev)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        ref = R.predict(cpu, x, to_cpu(noise), cfg, device="cpu")
+    check("minted toy_retrain_full ckpt1 on the toy's 4 classes, card vs CPU",
+          max_abs_err(probs.cpu(), ref), TOL_PROBS, float(ref.max()))
+    acc, ent = compute_acc_ent(toy, lambda xb: probs[:len(xb)], 512)
+    cpu_acc, cpu_ent = compute_acc_ent(toy, lambda xb: ref[:len(xb)], 512)
+    print(f"  its accuracy {acc!r} (CPU {cpu_acc!r}), mean entropy {ent!r} nats (CPU {cpu_ent!r});"
+          f" launches {launches}")
+    if not (acc == cpu_acc and abs(ent - cpu_ent) <= TOL_PROBS and acc > 0.5):
+        raise AssertionError(f"minted retrain chain: accuracy {acc} / {cpu_acc}, entropy "
+                             f"{ent} / {cpu_ent}")
+    return dict(acc=acc, ent=ent, launches=launches)
+
+
+class RecordedRegressionDraws:
+    """The regression driver's draw source over ``gen``, every draw kept
+    (``init`` once, then ``hypers``) so that a CPU run can replay them."""
+
+    def __init__(self, gen=None, replay=None):
+        from vargp_tpu_torch.experiments.regression import RegressionDraws
+
+        self.src = None if gen is None else RegressionDraws(gen)
+        self.replay = None if replay is None else iter(replay)
+        self.kept = []
+
+    def _next(self, make):
+        out = make() if self.replay is None else next(self.replay)
+        self.kept.append(out)
+        return out
+
+    def init(self):
+        return self._next(lambda: self.src.init())
+
+    def hypers(self, n):
+        return self._next(lambda: self.src.hypers(n))
+
+
+def check_regression(dev, smi):
+    """``regression`` on the card at REGRESSION's settings through the
+    drivers' entry point, the launches counted (a step: K5 2, one
+    symmetric, K7 1; the final RMSE the same at H = 16): RMSE below
+    max_rmse; then its first steps again on the CPU with the card's draws,
+    the step losses card vs CPU."""
+    from vargp_tpu_torch.experiments import regression as RG
+    from vargp_tpu_torch.utils.prng import task_generator
+
+    pr = REGRESSION
+    losses = {"card": [], "cpu": []}
+    orig = RG.step
+
+    def run(where, draws, epochs):
+        def step(*a, **kw):
+            out = orig(*a, **kw)
+            losses[where].append(out[2])
+            return out
+
+        RG.step = step
+        try:
+            with tempfile.TemporaryDirectory() as d:
+                return RG.regression(epochs=epochs, M=pr["M"], seed=pr["seed"], log_dir=d,
+                                     device=dev if where == "card" else "cpu", draws=draws)
+        finally:
+            RG.step = orig
+
+    rec = RecordedRegressionDraws(task_generator(np.random.SeedSequence(pr["seed"]), 0, dev))
+    reset_counts()
+    t0 = time.perf_counter()
+    _, rmse = run("card", rec, pr["epochs"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    print(f"  regression (epochs {pr['epochs']}, M {pr['M']}): train RMSE {rmse!r} (noise sigma "
+          f"0.1; limit {pr['max_rmse']}), {wall:.3f} s, launches {launches}; {smi}")
+    n = pr["epochs"] + 1
+    want = {k: 0 for k in counters()}
+    want.update(rbf_gram=2 * n, rbf_gram_sym=n, cholesky=n)
+    if launches != want:
+        raise AssertionError(f"regression: launches {launches}, expected {want}")
+    if not rmse < pr["max_rmse"]:
+        raise AssertionError(f"regression: RMSE {rmse} not below {pr['max_rmse']}")
+    k = pr["replay_steps"]
+    run("cpu", RecordedRegressionDraws(replay=[d.cpu() for d in rec.kept[:k + 2]]), k)
+    for i, (g, r) in enumerate(zip(losses["card"][:k], losses["cpu"])):
+        g, r = float(g), float(r)
+        rel = abs(g - r) / max(abs(r), 1e-30)
+        print(f"  regression step {i}: loss card {g!r} cpu {r!r}, rel err {rel:.3e} "
+              f"(tol {TOL_E2E_REL:.0e})")
+        if not rel <= TOL_E2E_REL:
+            raise AssertionError(f"regression step {i}: card and CPU differ by {rel}")
+    return dict(rmse=rmse, launches=launches, wall_s=wall,
+                steps_per_sec=pr["epochs"] / wall)
+
+
+def time_retrain_training(dev):
+    """The Retrain step at task 1 (and task 0) and the regression's step:
+    ms per forward, forward + backward and whole step (CUDA events around
+    back-to-back calls), the step's launches and device-busy ms under
+    torch.profiler, and its idle share (1 - busy / step ms)."""
+    from vargp_tpu_torch.experiments import regression as RG
+    from vargp_tpu_torch.models import vargp_retrain as R
+    from vargp_tpu_torch.train.optim import Yogi
+
+    out = {}
+    for task in (1, 0):
+        t = retrain_inputs(dev, task)
+
+        def fwd():
+            with torch.no_grad():
+                return R.loss(t["params"], t["frozen"], t["prior"], t["x"], t["y"], t["noise"],
+                              t["cfg"], weights=t["w"], device=dev)
+
+        launches, busy = traced_step(lambda: retrain_step(t))
+        step_ms = time_ms(lambda: retrain_step(t), reps=10)
+        out[f"retrain task {task}"] = {
+            "forward_ms": time_ms(fwd, reps=10),
+            "forward_backward_ms": time_ms(lambda: retrain_grads(t), reps=10),
+            "step_ms": step_ms, "step_launches_traced": launches, "step_device_busy_ms": busy,
+            "idle_share": 1.0 - busy / step_ms}
+    rng = np.random.default_rng(SEED)
+    x_np, y_np = RG._make_data(rng)
+    idx = rng.permutation(len(x_np))[:24]
+    x, y = torch.from_numpy(x_np).to(dev), torch.from_numpy(y_np).to(dev)
+    params = RG.RegressionParams(
+        kernel=RG.init_rbf(torch.zeros(2, device=dev)), lik=RG.init_gaussian(1, device=dev),
+        u_mean=torch.zeros((1, 24, 1), device=dev), u_tril_vec=torch.full((1, 300), 0.5, device=dev),
+        z=torch.from_numpy(x_np[idx]).to(dev)[None])
+    prior = RG.default_prior(1, device=dev)
+    opt = Yogi(1e-2)
+    state = opt.init(params)
+    hyper = torch.randn((3, 2), generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+
+    def reg_step():
+        return RG.step(params, state, prior, x, y, hyper, opt=opt)
+
+    launches, busy = traced_step(reg_step)
+    step_ms = time_ms(reg_step, reps=10)
+    out["regression"] = {"step_ms": step_ms, "step_launches_traced": launches,
+                         "step_device_busy_ms": busy, "idle_share": 1.0 - busy / step_ms}
+    for name, row in out.items():
+        print(f"  {name} step: " + "  ".join(f"{k} {v:.4f}" for k, v in row.items()))
+    return out
+
+
+def check_k7_small(dev, cond_cov):
+    """K7 at the Retrain and regression factor shapes (SMALL_CHOL) and on
+    the conditional covariance of a Retrain task's first step, symmetrised
+    and jittered as the model hands it over (rounding around 0 plus 1e-4
+    on the diagonal), against its plain version, each launch counted; NaN
+    from a non-positive pivot at each shape, as check_nan_pivot runs it.
+    Returns the largest error and the inputs for timing."""
+    from vargp_tpu_torch.ops.cuda.chol import cholesky, cholesky_plain
+
+    rng = np.random.default_rng(SEED + 11)
+    err, inputs = 0.0, {}
+    cases = {label: spd_blocks(rng, G, dev, S) for label, (G, S) in SMALL_CHOL.items()}
+    cases["retrain cond_cov step 0"] = cond_cov
+    for label, K in cases.items():
+        before = cholesky.launches
+        L = cholesky(junk_above(K))
+        torch.cuda.synchronize()
+        if cholesky.launches != before + 1:
+            raise AssertionError("K7's launch counter did not count its launch")
+        ref = cholesky_plain(K)
+        if not bool(torch.isfinite(ref).all()):
+            raise AssertionError(f"K7 {label}: the plain factor is not finite")
+        e = max_abs_err(L, ref)
+        check(f"K7 cholesky {label} {tuple(K.shape)}", e, TOL_CHOL, float(ref.abs().max()))
+        err = max(err, e)
+        inputs[label] = K
+    for G, S in SMALL_CHOL.values():
+        check_nan_pivot("K7 cholesky", cholesky, cholesky_plain, S, S // 2, G)
+    return err, inputs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1983,6 +2563,11 @@ def main() -> int:
     f64["rbf_gram"].update(f64_global)
     e7, k7_global = check_k7_global(dev)
     errs["cholesky"] = max(errs["cholesky"], e7)
+    print("the Retrain ablation's and the regression's kernel shapes (K5's small kernel at "
+          "D = 2 and 1):")
+    e5, f64_small, k5_small = check_k5_small(dev)
+    errs["rbf_gram"] = max(errs["rbf_gram"], e5)
+    f64["rbf_gram"].update(f64_small)
     # K3's timing shapes: the first diagonal block of A's (and C's) and of
     # B's chain Gram and of the analysis's (C's chain at H = 20), as views
     flag_k3 = {"(30, 128, 128)": flag_k3["(30, 128, 128)"],
@@ -2014,6 +2599,11 @@ def main() -> int:
                               *step_out[name][1][:2])
     print("the global SVGP's training step (one elbo_step each; gradients, card vs CPU):")
     global_launches = {name: check_global_step(name, dev) for name in GLOBAL_STEP}
+    print("the Retrain ablation's training step (task 0, task 1's first step and after 5 steps; "
+          "gradients, card vs CPU), and K7 at its and the regression's shapes:")
+    retrain_launches = check_retrain_step(dev)
+    e7, k7_small = check_k7_small(dev, retrain_launches.pop("cond_cov"))
+    errs["cholesky"] = max(errs["cholesky"], e7)
     print("training (train blocks on the card):")
     block_launches = check_training(dev)
 
@@ -2026,6 +2616,15 @@ def main() -> int:
     print("the global protocol (s_mnist_global's first two tasks, synthetic Split-MNIST), "
           "and its chain reload:")
     global_protocol = check_global_protocol(dev, smi)
+
+    print("the Retrain protocol (toy_retrain's two tasks, 30 epochs each):")
+    retrain_protocol = check_retrain_protocol(dev, smi)
+    print("the minted Retrain chain (results/toy_retrain_full/ckpt1.npz) reloaded:")
+    minted_retrain = check_minted_retrain(dev)
+    print("the regression (the Gaussian likelihood, regression(epochs=300, M=16)):")
+    regression = check_regression(dev, smi)
+    regression_per_step = {n: v // (REGRESSION["epochs"] + 1)
+                           for n, v in regression["launches"].items()}
 
     print("timings (ms per call):")
     spd = flag_k3["(30, 128, 128)"]
@@ -2087,6 +2686,9 @@ def main() -> int:
             library=lambda: torch.linalg.cholesky(k8in), **chol_work(k8in, 1, 1))},
     ))
     k5_cases, k7_cases = global_kernel_cases(k5_global, k7_global)
+    k5_small_cases, k7_small_cases = global_kernel_cases(k5_small, k7_small)
+    k5_cases.update(k5_small_cases)
+    k7_cases.update(k7_small_cases)
     next(e for e in entries if e["name"] == "rbf_gram")["cases"].update(k5_cases)
     for n, path, src, rpl, fn, plain, lib, n_out, n_f in (
         ("cholesky", "solve", "chol.cu", "chol.py:82", cholesky, cholesky_plain,
@@ -2131,16 +2733,27 @@ def main() -> int:
         print(f"  {n}: launches per global step {global_step_launches}, in the global protocol "
               f"{global_protocol['launches'][n]}, in its chain reload "
               f"{global_protocol['analysis_launches'][n]}")
+        retrain_step_launches = {k: v[n] for k, v in retrain_launches.items()}
+        print(f"  {n}: launches per Retrain step {retrain_step_launches}, in the Retrain protocol "
+              f"{retrain_protocol['launches'][n]}, in the minted chain's reload "
+              f"{minted_retrain['launches'][n]}; per regression step {regression_per_step[n]}, "
+              f"in the regression run {regression['launches'][n]}")
         kernels.append({
             "name": n, "route": e["route"], "source": e["source"], "replaces": e["replaces"],
             # launches: the counted train steps of the kernel's paths (A, B,
-            # C on its route; the global SVGP's two)
-            "launches": sum(per_step.values()) + sum(global_step_launches.values()),
+            # C on its route; the global SVGP's two; Retrain's task 0 and 1
+            # and a regression step)
+            "launches": sum(per_step.values()) + sum(global_step_launches.values())
+            + sum(retrain_step_launches.values()) + regression_per_step[n],
             "launches_per_step": per_step, "path": path,
             "protocol_launches": protocol["launches"][n],
             "global_launches_per_step": global_step_launches,
             "global_protocol_launches": global_protocol["launches"][n],
             "global_reload_launches": global_protocol["analysis_launches"][n],
+            "retrain_launches_per_step": retrain_step_launches,
+            "retrain_protocol_launches": retrain_protocol["launches"][n],
+            "regression_launches_per_step": regression_per_step[n],
+            "regression_launches": regression["launches"][n],
             "max_abs_err": errs[n], **t, **{f"at_{lb}": times[lb] for lb in rest},
         })
         if n in f64:  # the Grams against float64
@@ -2200,6 +2813,7 @@ def main() -> int:
                   f"(host clock, synchronised)")
     time_training(dev)
     time_global_training(dev)
+    time_retrain_training(dev)
     print(f"  launches per step under each route: default {step_launches}, "
           f"{ {r: v for r, v in route_launches.items()} }; "
           f"per loss + predict under the solve route {solve_forward_launches}")

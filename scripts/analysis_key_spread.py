@@ -25,6 +25,13 @@ taken from key 0's matrices (the JAX analysis as it runs), and every run's
 matrices are printed; ``toy_global_full``'s from the minted
 ``toy_density.json``.  ``scripts/analyze_torch_chains.py`` holds the
 port's reload on the card to these spreads.
+
+The Retrain ablation's ``toy_retrain_full`` runs on the JAX side only
+too: the JAX ``vargp_retrain.predict`` of its ckpt1 (both tasks' chain)
+on the toy's 4 classes (200 rows, one 512-row batch) at the model's
+budgets (n_var_samples = 3, n_f = 10), key k's draws for run k; each run's
+accuracy and mean predictive entropy (nats), then their mean and
+standard deviation over the keys.
 """
 
 import argparse
@@ -147,9 +154,39 @@ def jax_global_toy_runs(log_dir, keys):
         yield ret
 
 
+def jax_retrain_toy_runs(log_dir, keys):
+    """(accuracy, mean entropy in nats) of the Retrain chain's ckpt1 on the
+    toy's 4 classes with predict key k in 0 .. keys-1."""
+    import jax
+    import jax.numpy as jnp
+
+    from vargp_tpu import data
+    from vargp_tpu.models import vargp_retrain as R
+    from vargp_tpu.train.metrics import compute_acc_ent
+    from vargp_tpu.utils.checkpoint import load_pytree
+
+    cfg = R.RetrainConfig(M=20, out_size=4, in_size=2)
+    task = R.TaskRaw(jnp.zeros((4, 20, 2)), jnp.zeros((4, 20, 1)), jnp.zeros((4, 210)))
+    template = R.RetrainParams((task, task), R.RBFParams(jnp.zeros(3), jnp.zeros(3)))
+    params = jax.tree_util.tree_map(jnp.asarray, load_pytree(f"{log_dir}/ckpt1.npz", template))
+    toy = data.make_toy_dataset(seed=0)
+    predict = jax.jit(R.predict, static_argnames="cfg")
+    for k in range(keys):
+        key = jax.random.key(k)
+        yield compute_acc_ent(toy, lambda x: predict(params, jnp.asarray(x), key, cfg=cfg), 512)
+
+
 def global_spread(name, keys) -> dict:
     log_dir = str(REPO / "results" / name)
     t0 = time.perf_counter()
+    if name == "toy_retrain_full":
+        runs = [list(r) for r in jax_retrain_toy_runs(log_dir, keys)]
+        for k, (acc, ent) in enumerate(runs):
+            print(f"{name} jax key {k}: accuracy {acc!r} mean entropy {ent!r}", flush=True)
+        arr = np.asarray(runs)
+        return {"runs": runs, "mean": arr.mean(axis=0).tolist(), "std": arr.std(axis=0).tolist(),
+                "min": arr.min(axis=0).tolist(), "max": arr.max(axis=0).tolist(),
+                "seconds_per_run": (time.perf_counter() - t0) / keys}
     if name == "toy_global_full":
         minted = json.loads((REPO / "results" / name / "toy_density.json").read_text())
         runs = list(jax_global_toy_runs(log_dir, keys))
@@ -177,7 +214,7 @@ def global_spread(name, keys) -> dict:
             "seconds_per_run": (time.perf_counter() - t0) / keys}
 
 
-GLOBAL_CHAINS = ("smnist_global", "toy_global_full")
+GLOBAL_CHAINS = ("smnist_global", "toy_global_full", "toy_retrain_full")
 
 
 def main() -> int:

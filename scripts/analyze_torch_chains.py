@@ -11,7 +11,10 @@ the synthetic MNIST surrogate, which is made here again from its numpy
 seed; and the global SVGP's ``smnist_global`` (``analyze_smnist_global``,
 held to the JAX analysis's spread over 8 evaluation keys, GLOBAL_SPREAD)
 and ``toy_global_full`` (``analyze_toy_global``'s density retention, held
-to the JAX spread over 12 keys).  ``--results`` reads the chains from
+to the JAX spread over 12 keys); and the Retrain ablation's
+``toy_retrain_full`` (its ckpt1's accuracy and mean entropy on the toy's 4
+classes at the model's budgets, one draw a seed, held to the JAX
+``predict``'s spread over 12 keys, RETRAIN_SPREAD).  ``--results`` reads the chains from
 another directory (the chip copy leaves out most of ``results/``: copy the
 global chains under ``runs/``, which travels).
 For each, the port's ``analyze_smnist`` / ``analyze_pmnist`` runs on the
@@ -96,6 +99,13 @@ GLOBAL_SPREAD = {
                             minted=(0.5257651209831238, 0.4466162621974945)),
 }
 SPREAD_FLOOR = 0.002
+# ``scripts/analysis_key_spread.py --keys 12 toy_retrain_full`` on the CPU:
+# the JAX ``vargp_retrain.predict`` of ckpt1 on the toy's 200 rows (one
+# 512-row batch) at n_var_samples = 3, n_f = 10, keys 0-11: (mean, std,
+# min, max) of the accuracy and of the mean entropy in nats.
+RETRAIN_SPREAD = {"toy_retrain_full": dict(acc=(0.6375, 0.02479079130107255, 0.59, 0.665),
+                                           ent=(1.0068968391418458, 0.04712570347498606,
+                                                0.9533758544921875, 1.1158587646484375))}
 
 
 def _within(got, mean, std) -> np.ndarray:
@@ -160,6 +170,45 @@ def global_chain(name: str, log_dir: Path, out: Path, seeds: int) -> dict:
     print(f"  acc matrix (seed 0): {np.round(acc[0], 4).tolist()}")
     print(f"  ent matrix (seed 0): {np.round(ent[0], 4).tolist()}")
     return row
+
+
+def retrain_chain(name: str, log_dir: Path, seeds: int) -> dict:
+    """The Retrain chain's ckpt1 reloaded on the card: its accuracy and mean
+    entropy (nats) on the toy's 4 classes at the model's budgets, on the
+    draws of generator seeds 0 .. seeds-1 (hyper samples, then function
+    samples, one set for the batch), each held to RETRAIN_SPREAD's mean
+    within 3 standard deviations."""
+    from vargp_tpu_torch import data
+    from vargp_tpu_torch.models import vargp_retrain as R
+    from vargp_tpu_torch.train.metrics import compute_acc_ent
+    from vargp_tpu_torch.utils.checkpoint import load_pytree
+    from vargp_tpu_torch.utils.convert import params_from_numpy
+
+    dev = torch.device("cuda")
+    cfg = R.RetrainConfig(M=20, out_size=4, in_size=2)
+    tree = load_pytree(str(log_dir / "ckpt1.npz"), R.params_template(cfg, 2))
+    params = params_from_numpy(tree, device=dev)[0]
+    toy = data.make_toy_dataset(seed=0)
+    runs = []
+    for k in range(seeds):
+        gen = torch.Generator(device=dev).manual_seed(k)
+        noise = {"hyper_eps": torch.randn((3, 3), generator=gen, device=dev),
+                 "lik_eps": torch.randn((3, 10, 4, B), generator=gen, device=dev)}
+
+        def predict(x):
+            with torch.no_grad():
+                return R.predict(params, torch.from_numpy(x).to(dev), noise, cfg, device=dev)
+
+        runs.append(compute_acc_ent(toy, predict, B))
+    spread = RETRAIN_SPREAD[name]
+    arr = np.asarray(runs)
+    inside = bool(all(_within(arr[:, i], spread[key][0], spread[key][1]).all()
+                      for i, key in enumerate(("acc", "ent"))))
+    print(f"{name}: ckpt1 on the toy's 4 classes, per seed (accuracy, mean entropy) "
+          f"{arr.tolist()}; JAX over 12 keys: accuracy {spread['acc'][0]:.4f} +- "
+          f"{spread['acc'][1]:.4f}, entropy {spread['ent'][0]:.4f} +- {spread['ent'][1]:.4f}; "
+          f"within 3 std of the means: {inside}", flush=True)
+    return {"runs": arr.tolist(), "jax": spread, "inside": inside}
 
 
 def predict_ms_global(log_dir: Path) -> float:
@@ -250,6 +299,9 @@ def main() -> int:
     build.library()
     summary = {"card": smi}
     for name in args.chains:
+        if name in RETRAIN_SPREAD:
+            summary[name] = retrain_chain(name, Path(args.results) / name, max(args.seeds, 12))
+            continue
         if name in GLOBAL_SPREAD:
             summary[name] = global_chain(name, Path(args.results) / name, Path(args.out),
                                          args.seeds)

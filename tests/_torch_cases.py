@@ -382,3 +382,165 @@ def global_noise(m: dict, key, dtype=torch.float32) -> dict:
                                   jnp.float64 if dtype == torch.float64 else jnp.float32)
         return {k: torch.tensor(np.asarray(v)) for k, v in
                 zip(("hyper_eps", "lik_eps", "reg_eps"), draws) if v is not None}
+
+
+# ---------------------------------------------------------------------------
+# The VAR-GP Retrain ablation
+# ---------------------------------------------------------------------------
+
+RETRAIN = dict(O=3, M=5, D=2, B=10, H=2, N_F=4)
+
+
+def retrain_cfgs(**kw):
+    """The JAX and the port's ``RetrainConfig`` at RETRAIN's widths."""
+    from vargp_tpu.models import vargp_retrain as JR
+    from vargp_tpu_torch.models import vargp_retrain as TR
+
+    d = RETRAIN
+    args = dict(M=d["M"], out_size=d["O"], in_size=d["D"], n_f=d["N_F"], n_var_samples=d["H"],
+                **kw)
+    return JR.RetrainConfig(**args), TR.RetrainConfig(**args)
+
+
+def build_retrain(case: str, seed: int = 3) -> dict:
+    """A Retrain case at RETRAIN's widths, the JAX side's trees, after
+    ``tests/test_global_retrain.py::TestRetrain._setup``: ``task0`` (no
+    previous task), ``step0`` (task 1 at its first step: one previous
+    task of random raw parameters, trainable again and frozen into the
+    snapshot, so z_all[:M] is a copy of z~ and the conditional covariance
+    is rounding around 0 before its jitter) and ``moved`` (task 1 after
+    training has moved tasks[0]'s z, u_mean and u_tril_vec off the
+    snapshot).  The current task's u_tril_vec and the prior are perturbed
+    off their initial values."""
+    from vargp_tpu.models import vargp_retrain as JR
+
+    d = RETRAIN
+    O, M, D, B = d["O"], d["M"], d["D"], d["B"]
+    rng = np.random.default_rng(seed)
+    arr = lambda *shape, s=1.0: jnp.asarray((rng.standard_normal(shape) * s).astype(f32))
+    prev_chain = ()
+    if case != "task0":
+        prev_chain = (JR.TaskRaw(z=arr(O, M, D), u_mean=arr(O, M, 1),
+                                 u_tril_vec=arr(O, M * (M + 1) // 2, s=0.5)),)
+    jcfg, tcfg = retrain_cfgs()
+    params, prior, frozen = JR.init_params(jax.random.key(seed), arr(O, M, D), jcfg,
+                                           prev_chain=prev_chain)
+    cur = params.tasks[-1]
+    cur = cur._replace(u_tril_vec=cur.u_tril_vec + arr(*cur.u_tril_vec.shape, s=0.05))
+    tasks = (*params.tasks[:-1], cur)
+    if case == "moved":
+        t0 = tasks[0]
+        tasks = (t0._replace(z=t0.z + arr(O, M, D, s=0.1), u_mean=t0.u_mean + arr(O, M, 1, s=0.1),
+                             u_tril_vec=t0.u_tril_vec + arr(*t0.u_tril_vec.shape, s=0.1)), cur)
+    params = params._replace(tasks=tasks)
+    prior = prior._replace(log_mean=prior.log_mean + 0.3)
+    x = arr(B, D)
+    y = jnp.asarray(rng.integers(0, O, B))
+    w = jnp.asarray((rng.random(B) > 0.2).astype(f32))
+    return dict(cfg=jcfg, tcfg=tcfg, params=params, prior=prior, frozen=frozen, x=x, y=y, w=w)
+
+
+def retrain_loss_draws(key, cfg, B: int, S: int, c: int, dtype=jnp.float32):
+    """The draws ``vargp_retrain.loss`` makes from ``key`` (split four ways:
+    hypers, likelihood, u_{<=t}, u~_{<t}): hyper samples (n_v, D+1),
+    function samples (H, n_f, O, B) and, with c frozen rows, u_eps
+    (n_v, H, O, S) and ut_eps (n_v, n_v, H, O, c); None without them."""
+    n_v, O = cfg.n_var_samples, cfg.out_size
+    H = 1 if cfg.map_est_hypers else n_v
+    k_hyp, k_lik, k_u, k_ut = jax.random.split(key, 4)
+    hyper = jax.random.normal(k_hyp, (n_v, cfg.in_size + 1), dtype)
+    lik = jax.random.normal(k_lik, (H, cfg.n_f, O, B), dtype)
+    if not c:
+        return hyper, lik, None, None
+    return (hyper, lik, jax.random.normal(k_u, (n_v, H, O, S), dtype),
+            jax.random.normal(k_ut, (n_v, n_v, H, O, c), dtype))
+
+
+def retrain_predict_draws(key, cfg, B: int, dtype=jnp.float32):
+    """The draws ``vargp_retrain.predict`` makes from ``key``: hyper
+    samples, then function samples."""
+    k_hyp, k_lik = jax.random.split(key)
+    H = 1 if cfg.map_est_hypers else cfg.n_var_samples
+    return (jax.random.normal(k_hyp, (cfg.n_var_samples, cfg.in_size + 1), dtype),
+            jax.random.normal(k_lik, (H, cfg.n_f, cfg.out_size, B), dtype))
+
+
+def retrain_port(m: dict, dtype=torch.float32):
+    """The port's (params, frozen, prior, x, y, w) on the CPU in ``dtype``
+    for a ``build_retrain`` case."""
+    tp, tfrozen, tprior = convert.params_from_numpy(np_tree(m["params"]), np_tree(m["frozen"]),
+                                                    np_tree(m["prior"]), device="cpu")
+    t = lambda a: torch.tensor(np.asarray(a))
+    cast = lambda tree: tree_unflatten(tree, [a.to(dtype) for a in tree_leaves(tree)])
+    return (cast(tp), cast(tfrozen), cast(tprior), t(m["x"]).to(dtype), t(m["y"]),
+            t(m["w"]).to(dtype))
+
+
+def retrain_noise(m: dict, key, dtype=torch.float32) -> dict:
+    """``vargp_retrain.loss``'s noise for a ``build_retrain`` case: the JAX
+    draws of ``key`` in ``dtype`` (float64 draws under ``jax.enable_x64``)."""
+    S = sum(t.z.shape[-2] for t in m["params"].tasks)
+    c = sum(p.z.shape[-2] for p in m["frozen"])
+    with jax.enable_x64(dtype == torch.float64):
+        draws = retrain_loss_draws(key, m["cfg"], m["x"].shape[0], S, c,
+                                   jnp.float64 if dtype == torch.float64 else jnp.float32)
+        return {k: torch.tensor(np.asarray(v)) for k, v in
+                zip(("hyper_eps", "lik_eps", "u_eps", "ut_eps"), draws) if v is not None}
+
+
+class JaxRetrainDraws:
+    """A draw source for the port's Retrain ``train_task`` that replays the
+    JAX ``retrain_run.toy``'s draws for one task from its keys (k_sel,
+    k_init, k_task): the inducing rows from k_sel, the initial parameters
+    from k_init (split into the kernel's and u_mean's keys), then one key
+    split off k_task per train block (epoch e's permutation from
+    ``fold_in(k_blk, e)``, step s's loss draws from
+    ``fold_in(k_blk, n_epochs + s)``) and per evaluation (``predict``'s
+    draws of k_ev); the final accuracy's from what is left of k_task."""
+
+    def __init__(self, k_sel, k_init, k_task):
+        self.k_sel, self.k_init, self.key_seq = k_sel, k_init, k_task
+
+    _t = staticmethod(JaxDraws._t)
+
+    def inducing(self, data, M, out_size):
+        z = JV.select_inducing(self.k_sel, jnp.asarray(data.numpy()), M, out_size)
+        return self._t(z).to(data.device)
+
+    def init(self, cfg):
+        k_kern, k_u = jax.random.split(self.k_init)
+        return {"kernel_eps": self._t(jax.random.normal(k_kern, (cfg.in_size + 1,))),
+                "u_eps": self._t(jax.random.normal(k_u, (cfg.out_size, cfg.M, 1)))}
+
+    def block(self, n_pad, batch_size, n_epochs, cfg, S, c):
+        self.key_seq, k_blk = jax.random.split(self.key_seq)
+        steps = n_pad // batch_size
+        for e in range(n_epochs):
+            perm = self._t(jax.random.permutation(jax.random.fold_in(k_blk, e), n_pad)).long()
+            for s in range(steps):
+                k = jax.random.fold_in(k_blk, n_epochs + e * steps + s)
+                yield (perm[s * batch_size:(s + 1) * batch_size],
+                       convert.noise_for_retrain_loss(
+                           *retrain_loss_draws(k, cfg, batch_size, S, c), device="cpu"))
+
+    def evaluation(self, cfg, batch_size):
+        self.key_seq, k_ev = jax.random.split(self.key_seq)
+        return convert.noise_for_retrain_loss(*retrain_predict_draws(k_ev, cfg, batch_size),
+                                              device="cpu")
+
+    def final(self, cfg, batch_size):
+        return convert.noise_for_retrain_loss(*retrain_predict_draws(self.key_seq, cfg,
+                                                                     batch_size), device="cpu")
+
+
+def jax_retrain_task_draws(seed: int):
+    """``retrain_run.toy``'s ``task_draws`` replaying the JAX driver at
+    ``seed``: task t's keys split four ways off the run's key, in order
+    (the run's next key, k_sel, k_init, k_task)."""
+    state = {"key": jax.random.key(seed)}
+
+    def task_draws(t):
+        state["key"], k_sel, k_init, k_task = jax.random.split(state["key"], 4)
+        return JaxRetrainDraws(k_sel, k_init, k_task)
+
+    return task_draws

@@ -154,7 +154,7 @@ def test_command_table():
     assert set(cmds) == {"toy", "s_mnist", "p_mnist", "s_digits", "varying_m", "analyze_smnist",
                          "analyze_pmnist", "analyze_sdigits", "analyze_toy", "toy_global",
                          "s_mnist_global", "p_mnist_global", "analyze_toy_global",
-                         "analyze_smnist_global"}
+                         "analyze_smnist_global", "toy_retrain", "regression"}
     from vargp_tpu.experiments import cli as jcli
 
     assert set(cmds) | set(cli.NOT_PORTED) == set(jcli._commands())

@@ -15,8 +15,6 @@ import sys
 
 # JAX commands still to port -> the ROADMAP item that ports them
 NOT_PORTED = {
-    "toy_retrain": "Queue A item 5 (retrain)",
-    "regression": "Queue A item 5 (the Gaussian likelihood)",
     "compare_methods": "Queue A item 5 (the comparisons and plots)",
     "compare_vcl": "Queue A item 5 (the comparisons and plots)",
     "gen_sweep": "Queue A item 5 (sweep.py)",
@@ -27,7 +25,13 @@ MULTI_PROCESS_FLAGS = ("coordinator_address", "num_processes", "process_id")
 
 
 def _commands():
-    from vargp_tpu_torch.experiments import analysis, global_run, vargp_run
+    from vargp_tpu_torch.experiments import (
+        analysis,
+        global_run,
+        regression,
+        retrain_run,
+        vargp_run,
+    )
 
     return {
         "toy": vargp_run.toy,
@@ -44,6 +48,8 @@ def _commands():
         "p_mnist_global": global_run.permuted_mnist,
         "analyze_toy_global": analysis.analyze_toy_global,
         "analyze_smnist_global": analysis.analyze_smnist_global,
+        "toy_retrain": retrain_run.toy,
+        "regression": regression.regression,
     }
 
 

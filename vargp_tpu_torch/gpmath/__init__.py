@@ -22,6 +22,7 @@ from vargp_tpu_torch.gpmath.linalg import (
     mmt,
     mtm,
     rev_cholesky,
+    sym_cholesky,
     tri_inv,
     tri_solve,
 )
@@ -50,6 +51,7 @@ __all__ = [
     "mvn_log_prob",
     "mvn_sample",
     "rev_cholesky",
+    "sym_cholesky",
     "tri_inv",
     "tri_solve",
     "tril_dim",

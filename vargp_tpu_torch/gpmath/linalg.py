@@ -34,6 +34,14 @@ def cholesky(K: torch.Tensor, eps: float = DEFAULT_JITTER) -> torch.Tensor:
     return batched_cholesky(add_jitter(K, eps))
 
 
+def sym_cholesky(K: torch.Tensor, eps: float = DEFAULT_JITTER) -> torch.Tensor:
+    """chol(sym(K) + eps*I) through K7, sym(K) = (K + K^T) / 2: the value
+    and gradient of ``jnp.linalg.cholesky``, which symmetrises its input
+    where K7 reads only the lower triangle.  For a K symmetric only to
+    rounding (a conditional covariance, a Gram's plain version)."""
+    return cholesky(0.5 * (K + K.transpose(-1, -2)), eps)
+
+
 def rev_cholesky(L: torch.Tensor) -> torch.Tensor:
     """L @ L^T."""
     return torch.matmul(L, L.transpose(-1, -2))

@@ -36,7 +36,7 @@ and the cross K_zx against the batch) and K7 once at task 0, three times
 with a previous task (K_zz, K(prev.z, prev.z) and the predictive
 covariance).  K7 reads only the lower triangle where ``jnp.linalg.cholesky``
 symmetrises its input, so every matrix is symmetrised before K7
-(``_cholesky``), as the JAX call does: the predictive covariance
+(``gpmath.sym_cholesky``), as the JAX call does: the predictive covariance
 Kxx - W^T W + C^T C is symmetric only to rounding (and near 0 when z
 equals prev.z), and so are the Grams' plain versions on the CPU (K5's
 symmetric launch is bitwise symmetric: there it changes nothing).
@@ -93,12 +93,6 @@ class GlobalSVGPConfig:
     jitter: float = gpmath.DEFAULT_JITTER
 
 
-def _cholesky(K: torch.Tensor, jitter: float) -> torch.Tensor:
-    """chol(sym(K) + jitter I) through K7, sym(K) = (K + K^T) / 2: the
-    value and gradient of ``jnp.linalg.cholesky``, which symmetrises."""
-    return gpmath.cholesky(0.5 * (K + K.transpose(-1, -2)), jitter)
-
-
 def _whiten(L, Kzx, u_mean, u_tril, Kxx=None, jitter=gpmath.DEFAULT_JITTER):
     """The SVGP conditional against the inducing factor L = chol(K_zz):
 
@@ -122,7 +116,7 @@ def _whiten(L, Kzx, u_mean, u_tril, Kxx=None, jitter=gpmath.DEFAULT_JITTER):
     if Kxx is not None:
         cov = Kxx - torch.einsum("...mb,...mc->...bc", W, W) + torch.einsum(
             "...ib,...ic->...bc", C, C)
-        return mu, cov, _cholesky(Kxx, jitter)
+        return mu, cov, gpmath.sym_cholesky(Kxx, jitter)
     return mu, torch.sum(torch.square(W), dim=-2), torch.sum(torch.square(C), dim=-2)
 
 
@@ -155,7 +149,7 @@ def forward(params: GlobalSVGPParams, x: torch.Tensor, hyper_eps: torch.Tensor,
     u_tril = gpmath.vec2tril(params.u_tril_vec, cfg.M)
     rows = params.z if prev_z is None else torch.cat([params.z, prev_z], dim=-2)
     K = gram(theta, rows)  # K5's symmetric launch
-    L = _cholesky(K[..., :cfg.M, :cfg.M], cfg.jitter)  # K7
+    L = gpmath.sym_cholesky(K[..., :cfg.M, :cfg.M], cfg.jitter)  # K7
     Kzx = gram(theta, params.z, x.expand(cfg.out_size, *x.shape))  # K5's cross launch
     mu, diag1, diag2 = _whiten(L, Kzx, params.u_mean, u_tril)
     var = torch.clamp(gram_diag(theta) - diag1 + diag2, min=0.0)
@@ -191,7 +185,7 @@ def loss(params: GlobalSVGPParams, prev: GlobalPrev | None, prior: RBFPrior,
         M, K = cfg.M, stats["K"]
         pred_mu, pred_cov, Lkff_prev = _whiten(stats["Lkuu"], K[..., :M, M:], params.u_mean,
                                                stats["u_tril"], K[..., M:, M:], cfg.jitter)
-        pred_L = _cholesky(pred_cov, cfg.jitter)
+        pred_L = gpmath.sym_cholesky(pred_cov, cfg.jitter)
         u = gpmath.mvn_sample(pred_mu, pred_L, noise["reg_eps"])  # (n_v, H, O, M_prev)
         log_q = gpmath.mvn_log_prob(u, prev.u_mean[..., 0], prev.u_tril)
         log_p = gpmath.mvn_log_prob(u, torch.zeros_like(pred_mu), Lkff_prev)

@@ -20,6 +20,7 @@ import torch
 
 from vargp_tpu_torch.ops.cuda.chol import cholesky as _chol_kernel
 from vargp_tpu_torch.ops.cuda.chol_inv import chol_inv as _chol_inv_kernel
+from vargp_tpu_torch.ops.cuda.rbf_gram import SMALL_D
 from vargp_tpu_torch.ops.cuda.rbf_gram import rbf_gram as _rbf_gram_kernel
 
 # Blocked-split rule of vargp_tpu/ops/dispatch.py:185-214.  The upper bound
@@ -253,8 +254,15 @@ class _RbfGram(torch.autograd.Function):
     def backward(ctx, g):
         sx, sy, gamma2, K = ctx.saved_tensors
         W = g * K  # (G, M, N)
-        dsx = torch.matmul(W, sy) - torch.sum(W, dim=-1)[..., None] * sx
-        dsy = torch.matmul(W.transpose(-1, -2), sx) - torch.sum(W, dim=-2)[..., None] * sy
+        if sx.shape[-1] <= SMALL_D:
+            # the differences themselves, as the small kernel forms them:
+            # W sy - rowsum(W) sx cancels where W is large and the rows close
+            diff = sy[:, None, :, :] - sx[:, :, None, :]  # (G, M, N, D)
+            dsx = torch.einsum("gmn,gmnd->gmd", W, diff)
+            dsy = -torch.einsum("gmn,gmnd->gnd", W, diff)
+        else:
+            dsx = torch.matmul(W, sy) - torch.sum(W, dim=-1)[..., None] * sx
+            dsy = torch.matmul(W.transpose(-1, -2), sx) - torch.sum(W, dim=-2)[..., None] * sy
         d_gamma2 = torch.sum(W, dim=(-2, -1)) / torch.clamp(gamma2, min=1e-30)
         return dsx, dsy, d_gamma2
 

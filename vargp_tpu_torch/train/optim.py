@@ -83,13 +83,15 @@ class _Moments:
         ``scale_by_yogi`` / ``scale_by_adam`` of optax, before the learning
         rate."""
         count = state.count + 1
-        c = count.to(torch.float32)
-        # 1 - b^c in f32 on the device, as optax computes its bias
-        # corrections; no host value is copied in, so nothing waits
+        g_leaves = tree_leaves(grads)
+        c = count.to(g_leaves[0].dtype)
+        # 1 - b^c on the device in the parameters' float type (f32 in
+        # training), as optax computes its bias corrections in JAX's default
+        # float type; no host value is copied in, so nothing waits
         bc1 = 1.0 - torch.pow(self.b1, c)
         bc2 = 1.0 - torch.pow(self.b2, c)
         upd, new_mu, new_nu = [], [], []
-        for g, m, v in zip(tree_leaves(grads), tree_leaves(state.mu), tree_leaves(state.nu)):
+        for g, m, v in zip(g_leaves, tree_leaves(state.mu), tree_leaves(state.nu)):
             m = (1.0 - self.b1) * g + self.b1 * m
             v = self._second(g, v)
             upd.append((m / bc1) / (torch.sqrt(v / bc2) + self.eps))
