@@ -133,7 +133,27 @@ result) on a failure:
    (nested as at_<label>), and the global step's forward, forward +
    backward, whole step, launches, device-busy time and idle share; K5
    and K7 at the shapes of phase 10 too, and the same for the Retrain
-   step (task 0 and 1) and the regression's step.
+   step (task 0 and 1) and the regression's step;
+12. the exported predictor (``utils.export``): ``predict`` at the
+   evaluation's shapes on A's 5-task chain (M = 60, S = 300, D = 784,
+   B = 512, H = 20, n_f = 50; ``EXPORT``) exported under the default route
+   and under ``VARGP_TPU_CHOLINV=pallas``, its graph's ``vargp_torch::``
+   nodes counted (one per launch: K1, K3 three times and K4; K6 in K3's
+   place), the ``.pt2`` loaded in a fresh ``python3`` on the card, its
+   launches per call counted there, its probabilities bitwise equal to
+   eager ``predict``'s on the same noise (else within 1e-6, the reason
+   printed), both timed per call with CUDA events;
+13. per-op device profiles (``utils.profiling.profile_fn``) of one
+   training step at A, B, D (the global step) and E (Retrain's task-1
+   step): the top 15 ops by device ms per step, the most launched ops,
+   and each of the port's kernels traced against the launches its wrapper
+   counted, the short ones named;
+14. the FLOP audit (``utils.flops.audit``) of one training step at A and
+   at B: GFLOP by bucket (f32 products, the ``vargp_torch::`` operators by
+   their cost functions), movement MB, the speed of light on the H100,
+   ``achieved`` against the step's device-busy time and its CUDA-event
+   time, the card's name and power limit beside them.  The bounds of
+   phase 11 come from the same cost functions (``<wrapper>.cost``).
 
 The line before the last two is one JSON object ``{"kernels": [...]}``; then
 the card's ``nvidia-smi`` name and power limit; the last line is
@@ -446,6 +466,12 @@ def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
     t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def work(cost) -> dict:
+    """kernel_times' ``flops`` and ``nbytes`` from a wrapper's cost function's
+    (flops, bytes): the formula the FLOP audit bills the operator by."""
+    return dict(flops=float(cost[0]), nbytes=float(cost[1]))
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1469,8 +1495,7 @@ def time_k3(blocks: dict) -> dict:
 
     out = {}
     for label, A in blocks.items():
-        G, h = A.shape[0], A.shape[-1]
-        b_ms, b_by = bound(G * h ** 3 / 3.0, 4.0 * G * (h * (h + 1) / 2 + h * h))
+        b_ms, b_by = bound(*diag_chol.cost(A.shape))
         fn, lib = (lambda: diag_chol(A)), (lambda: torch.linalg.cholesky(A))
         out[label] = {"ms": device_ms(fn, one_kernel=True), "event_ms": time_ms(fn), "cold_ms": cold_ms(fn),
                       "bound_ms": b_ms, "bound_by": b_by, "library_ms": device_ms(lib),
@@ -1506,10 +1531,11 @@ def gram_case(n, H, O, S, B, D, rng, dev) -> dict:
     """Gram kernel ``n`` (sym_gram K1, sym_gram_tri K2, cross_gram K4 or
     rbf_gram K5) at one shape of GRAM_SHAPES, as kernel_times takes it: the
     kernel, its plain version and the yardstick (``cdist`` + ``exp`` on
-    inputs scaled beforehand), the operations (a symmetric Gram's S(S+1)/2
-    distinct entries) and bytes (inputs read once, the output written
-    once), at the 3xTF32 rate the kernels multiply at.  K5 takes G = H * O
-    Grams of features (K_zz when B = 0, its input read once)."""
+    inputs scaled beforehand), the operations and bytes of the wrapper's
+    cost function (a symmetric Gram's mirrored pairs once; inputs read
+    once, the output written once), at the 3xTF32 rate the kernels multiply
+    at.  K5 takes G = H * O Grams of features (K_zz when B = 0: the
+    symmetric mode)."""
     from vargp_tpu_torch.ops.cuda.cross_gram import cross_gram, cross_gram_plain
     from vargp_tpu_torch.ops.cuda.rbf_gram import rbf_gram, rbf_gram_plain
     from vargp_tpu_torch.ops.cuda.sym_gram import sym_gram, sym_gram_plain
@@ -1520,13 +1546,13 @@ def gram_case(n, H, O, S, B, D, rng, dev) -> dict:
         sz, sx, g2 = dkl_features(rng, G, S, max(B, 1), D, dev)
         g3 = g2[:, None, None]
         other, N = (sz, S) if B == 0 else (sx, B)
-        inputs = G * S * D if B == 0 else G * (S + B) * D
+        flops, nbytes = (rbf_gram.sym_cost(sz.shape, g2.shape) if B == 0
+                         else rbf_gram.cost(sz.shape, other.shape, g2.shape))
         return dict(
             shape=[G, S, N, D], fn=lambda: rbf_gram(sz, other, g2),
             plain=lambda: rbf_gram_plain(sz, other, g2),
             library=lambda: g3 * torch.exp(-0.5 * torch.cdist(sz, other).square()),
-            flops=1.0 * G * S * (S + 1) * D if B == 0 else 2.0 * G * S * B * D,
-            nbytes=4.0 * (inputs + G + G * S * N), peak=PEAK_TF32X3_FLOPS)
+            flops=flops, nbytes=nbytes, peak=PEAK_TF32X3_FLOPS)
     z, x, invs, invs2, gamma2 = gram_inputs(rng, O, S, D, H, max(B, 1), dev)
     g4 = gamma2[:, None, None, None]
     if n in ("sym_gram", "sym_gram_tri"):
@@ -1536,16 +1562,15 @@ def gram_case(n, H, O, S, B, D, rng, dev) -> dict:
             shape=[H, O, S, D], fn=lambda: kernel(z, invs, gamma2),
             plain=lambda: sym_gram_plain(z, invs, gamma2),
             library=lambda: g4 * torch.exp(-0.5 * torch.cdist(sz, sz).square().view(H, O, S, S)),
-            flops=1.0 * H * O * S * (S + 1) * D,
-            nbytes=4.0 * (O * S * D + 2 * H * D + H + H * O * S * S), peak=PEAK_TF32X3_FLOPS)
+            **work(kernel.cost(z.shape, invs.shape, gamma2.shape)), peak=PEAK_TF32X3_FLOPS)
     zw = (z[None] * invs2.sqrt()[:, None, None, :]).reshape(H * O, S, D)
     xw = (x[None] * invs2.sqrt()[:, None, :])[:, None].expand(H, O, B, D).reshape(H * O, B, D)
     return dict(
         shape=[H, O, S, B, D], fn=lambda: cross_gram(z, x, invs2, gamma2),
         plain=lambda: cross_gram_plain(z, x, invs2, gamma2),
         library=lambda: g4 * torch.exp(-0.5 * torch.cdist(zw, xw).square().view(H, O, S, B)),
-        flops=2.0 * H * O * S * B * D,
-        nbytes=4.0 * (O * S * D + B * D + H * D + H + H * O * S * B), peak=PEAK_TF32X3_FLOPS)
+        **work(cross_gram.cost(z.shape, x.shape, invs2.shape, gamma2.shape)),
+        peak=PEAK_TF32X3_FLOPS)
 
 
 def gram_cases(dev) -> dict:
@@ -1961,8 +1986,9 @@ def global_kernel_cases(k5_inputs, k7_inputs) -> tuple[dict, dict]:
     """kernel_times cases for K5 at GLOBAL_GRAMS and K7 at GLOBAL_CHOL: the
     kernel, its plain version, the library call (``cdist`` + ``exp``;
     ``torch.linalg.cholesky``), the operations and bytes (inputs read once,
-    outputs written once; a self-Gram's S(S+1)/2 distinct entries, K7's
-    S^3/3 multiply-adds' worth) at the 3xTF32 rate."""
+    outputs written once; a self-Gram's mirrored pairs once, K7's S^3/3
+    multiply-adds' worth: the wrappers' cost functions) at the 3xTF32
+    rate."""
     from vargp_tpu_torch.ops.cuda.chol import cholesky, cholesky_plain
     from vargp_tpu_torch.ops.cuda.rbf_gram import rbf_gram, rbf_gram_plain
 
@@ -1971,13 +1997,12 @@ def global_kernel_cases(k5_inputs, k7_inputs) -> tuple[dict, dict]:
         G, S, D = a.shape
         N = b.shape[1]
         g3 = g[:, None, None]
-        inputs = G * S * D if a is b else G * (S + N) * D
         k5[label] = dict(
             shape=[G, S, N, D], fn=functools.partial(rbf_gram, a, b, g),
             plain=functools.partial(rbf_gram_plain, a, b, g),
             library=lambda a=a, b=b, g3=g3: g3 * torch.exp(-0.5 * torch.cdist(a, b).square()),
-            flops=1.0 * G * S * (S + 1) * D if a is b else 2.0 * G * S * N * D,
-            nbytes=4.0 * (inputs + G + G * S * N), peak=PEAK_TF32X3_FLOPS)
+            **work(rbf_gram.sym_cost(a.shape, g.shape) if a is b
+                   else rbf_gram.cost(a.shape, b.shape, g.shape)), peak=PEAK_TF32X3_FLOPS)
     k7 = {}
     for label, K in k7_inputs.items():
         G, S = K.shape[0], K.shape[-1]
@@ -1985,7 +2010,7 @@ def global_kernel_cases(k5_inputs, k7_inputs) -> tuple[dict, dict]:
             shape=[G, S, S], fn=functools.partial(cholesky, K),
             plain=functools.partial(cholesky_plain, K),
             library=functools.partial(torch.linalg.cholesky, K), peak=PEAK_TF32X3_FLOPS,
-            flops=G * S ** 3 / 3.0, nbytes=4.0 * G * (S * (S + 1) / 2 + S * S))
+            **work(cholesky.cost(K.shape)))
     return k5, k7
 
 
@@ -2532,6 +2557,232 @@ def check_k7_small(dev, cond_cov):
     return err, inputs
 
 
+# ---------------------------------------------------------------------------
+# the kernels as operators: the exported predictor, per-op profiles, the
+# FLOP audit
+# ---------------------------------------------------------------------------
+
+# predict exported at the evaluation's shapes on A's 5-task chain (M = 60,
+# S = 300, D = 784, B = 512, H = 20 hyper samples, n_f = 50), loaded in a
+# fresh process: its probabilities bitwise equal to eager predict's on the
+# same noise, or within `tol` with the reason printed; its launches per
+# call under each route
+EXPORT = dict(batch_size=512, n_f=50, n_var_samples=20, reps=10, tol=1e-6, seed=SEED + 11,
+              launches={"default": {"sym_gram": 1, "diag_chol": 3, "cross_gram": 1},
+                        "fused": {"sym_gram": 1, "chol_inv": 1, "cross_gram": 1}})
+# each launch counter's kernels in a trace, by their __global__ names (K8's
+# launcher runs K3's kernel; rbf_gram_sym is a part of rbf_gram's count)
+KERNEL_SYMBOLS = {
+    "sym_gram": r"\bsym_gram_kernel\b", "sym_gram_tri": r"\bsym_gram_tri_kernel\b",
+    "diag_chol": r"\bdiag_chol_kernel\b", "cross_gram": r"\bcross_gram_kernel\b",
+    "rbf_gram": r"\brbf_gram(_sym|_small)?_kernel\b", "chol_inv": r"\bchol_inv_kernel\b",
+    "cholesky": r"\bchol_kernel\b",
+}
+PROFILE = dict(iters=10, top=15)
+
+# run in a fresh python3: load the exported predictor, count its launches
+# on one call, time it, save its probabilities
+_LOADED_PREDICT = r"""
+import json, sys, time
+import torch
+import chip_smoke as s
+from vargp_tpu_torch.utils.export import load_predictor
+
+path, inputs, out, reps = sys.argv[1:5]
+t0 = time.perf_counter()
+pred = load_predictor(path)
+load_s = time.perf_counter() - t0
+d = torch.load(inputs)
+x, noise = d["x"].cuda(), {k: v.cuda() for k, v in d["noise"].items()}
+s.reset_counts()
+probs = pred(x, noise)
+torch.cuda.synchronize()
+counts = s.read_counts()
+nodes = [str(n.target) for n in pred.program.graph.nodes
+         if n.op == "call_function" and str(n.target).startswith("vargp_torch.")]
+ms = s.time_ms(lambda: pred(x, noise), reps=int(reps))
+torch.save(probs.cpu(), out)
+print(json.dumps({"launches": counts, "nodes": nodes, "ms": ms, "load_s": load_s}))
+"""
+
+
+def check_export(dev, route: str = "default") -> dict:
+    """``utils.export`` on the card under ``route``: predict at EXPORT's
+    shapes exported (the route's knobs set while it traces), its graph's
+    ``vargp_torch::`` nodes counted, the .pt2 loaded in a fresh process and
+    called without the knobs, its launches per call counted there against
+    EXPORT's, its probabilities against eager predict's on the same noise
+    (bitwise, else within EXPORT["tol"] with the reason printed), both
+    timed per call with CUDA events."""
+    from vargp_tpu_torch.models import vargp as V
+    from vargp_tpu_torch.utils import export as E
+
+    cfg, params, prev, _, x, _, _, _ = flagship_model(dev)
+    B, n_f, n_var = EXPORT["batch_size"], EXPORT["n_f"], EXPORT["n_var_samples"]
+    cfg_eval = V.eval_budget_cfg(cfg, n_f=n_f, n_var_samples=n_var)
+    rng = np.random.default_rng(EXPORT["seed"])
+    noise = {k: torch.tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev)
+             for k, shape in E.noise_shapes(cfg_eval, B).items()}
+    want = {k: 0 for k in counters()}
+    want.update(EXPORT["launches"][route])
+    tmp = tempfile.mkdtemp(prefix="vargp_export_")
+    path = os.path.join(tmp, "predictor.pt2")
+    with route_env(route):
+        t0 = time.perf_counter()
+        E.export_predictor(params, prev, cfg, B, path, n_f=n_f, n_var_samples=n_var, device=dev)
+        export_s = time.perf_counter() - t0
+
+        def eager():
+            with torch.no_grad():
+                return V.predict(params, prev, x, noise, cfg_eval, device=dev)
+
+        reset_counts()
+        ref = eager()
+        torch.cuda.synchronize()
+        eager_launches = read_counts()
+        eager_ms = time_ms(eager, reps=EXPORT["reps"])
+    if eager_launches != want:
+        raise AssertionError(f"export {route}: eager predict launched {eager_launches}, expected {want}")
+    torch.save({"x": x.cpu(), "noise": {k: v.cpu() for k, v in noise.items()}},
+               os.path.join(tmp, "inputs.pt"))
+    here = os.path.dirname(os.path.abspath(__file__))
+    res = subprocess.run(
+        [sys.executable, "-c", _LOADED_PREDICT, path, os.path.join(tmp, "inputs.pt"),
+         os.path.join(tmp, "probs.pt"), str(EXPORT["reps"])],
+        cwd=here, env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [here, *filter(None, [os.environ.get("PYTHONPATH")])])), capture_output=True, text=True,
+        timeout=900)
+    if res.returncode != 0:
+        raise RuntimeError(f"export {route}: the fresh process failed:\n{res.stdout}{res.stderr}")
+    loaded = json.loads(res.stdout.strip().splitlines()[-1])
+    if loaded["launches"] != want:
+        raise AssertionError(f"export {route}: the loaded predictor launched {loaded['launches']}, "
+                             f"expected {want}")
+    n_nodes = len(loaded["nodes"])
+    if n_nodes != sum(want.values()):
+        raise AssertionError(f"export {route}: {n_nodes} vargp_torch nodes {loaded['nodes']}, "
+                             f"expected {sum(want.values())}: the graph lost a kernel")
+    got = torch.load(os.path.join(tmp, "probs.pt")).to(dev)
+    bitwise = torch.equal(got, ref)
+    err = max_abs_err(got, ref)
+    print(f"  export {route}: {export_s:.2f} s to export, {loaded['load_s']:.2f} s to load in a "
+          f"fresh process; {n_nodes} vargp_torch nodes {sorted(set(loaded['nodes']))}; launches "
+          f"per call {dict((k, v) for k, v in loaded['launches'].items() if v)} (eager the same); "
+          f"probabilities {tuple(got.shape)} "
+          + ("bitwise equal to eager predict's" if bitwise else f"max abs diff {err:.3e}"))
+    if not bitwise:
+        inproc = E.load_predictor(path, device=dev)(x, noise)
+        same = torch.equal(inproc, got)
+        print(f"  export {route}: not bitwise equal: the loaded graph in this process gives "
+              + ("the fresh process's values bit for bit, so the difference is the graph's: "
+                 "it runs ATen's decompositions of the eager calls (matmul and einsum as bmm "
+                 "with their reshapes), which may take another cuBLAS kernel and order of sums"
+                 if same else f"{max_abs_err(inproc, ref):.3e} from eager: the run itself "
+                 "is not deterministic"))
+        if err > EXPORT["tol"]:
+            raise AssertionError(f"export {route}: {err:.3e} from eager predict > {EXPORT['tol']}")
+    print(f"  export {route}: predict per call (CUDA events) eager {eager_ms:.4f} ms, "
+          f"loaded {loaded['ms']:.4f} ms")
+    return dict(launches=loaded["launches"], nodes=n_nodes, bitwise=bitwise, max_abs_diff=err,
+                eager_ms=eager_ms, loaded_ms=loaded["ms"], export_s=export_s,
+                load_s=loaded["load_s"])
+
+
+def traced_kernels(launches: dict) -> dict:
+    """Each launch counter's traced kernel events per call: the events whose
+    names match its KERNEL_SYMBOLS pattern."""
+    import re
+
+    return {n: sum(v for k, v in launches.items() if re.search(pat, k))
+            for n, pat in KERNEL_SYMBOLS.items()}
+
+
+def profile_cases(dev) -> dict:
+    """One training step of each profiled configuration, as a callable: A
+    and B (``elbo_step``), D (the global step, task 1 of s_mnist_global)
+    and E (Retrain's task-1 first step)."""
+    a, b = train_inputs("A", dev), train_inputs("B", dev)
+    d = global_inputs("S-MNIST global", dev)
+    e = retrain_inputs(dev, task=1)
+    return {"A": lambda: step(a), "B": lambda: step(b), "D": lambda: global_step(d),
+            "E": lambda: retrain_step(e)}
+
+
+def check_profiles(dev, smi) -> dict:
+    """``utils.profiling.profile_fn`` on one step of each profile_cases
+    configuration: the top ops by device ms per step, the kernel events
+    traced per step, and each of the port's kernels traced against the
+    launches its wrapper counted over the same calls (a warm-up and
+    PROFILE["iters"]); a kernel traced fewer times than launched is named."""
+    from vargp_tpu_torch.utils.profiling import profile_fn
+
+    out = {}
+    for name, fn in profile_cases(dev).items():
+        reset_counts()
+        prof = profile_fn(fn, iters=PROFILE["iters"], top=PROFILE["top"], device=dev)
+        calls = PROFILE["iters"] + 1
+        counted = {n: v / calls for n, v in read_counts().items()}
+        counted["diag_chol"] += counted.pop("diag_chol_chunked")  # one kernel
+        counted.pop("rbf_gram_sym")
+        traced = traced_kernels(prof["launches_per_call"])
+        short = {n: (traced[n], counted[n]) for n in traced if traced[n] < counted[n]}
+        ours = sum(counted.values())
+        print(f"  profile {name}: {prof['events_per_call']:.1f} kernel events traced per step, "
+              f"{prof['busy_ms']:.4f} ms of device work per step; the port's kernels traced "
+              f"{sum(traced.values()):.1f} per step against {ours:.1f} launches counted"
+              + (f"; SHORT in the trace (traced, counted): {short}" if short else
+                 ": every launch traced"))
+        for op, ms in prof["top"].items():
+            print(f"    {ms:9.5f} ms  {prof['launches_per_call'].get(op, 0):6.1f}x  {op[:110]}")
+        by_count = sorted(prof["launches_per_call"].items(), key=lambda kv: -kv[1])[:10]
+        print(f"    most launched: " + "; ".join(f"{v:.0f}x {k[:60]}" for k, v in by_count))
+        out[name] = dict(events_per_call=prof["events_per_call"], busy_ms=prof["busy_ms"],
+                         top=prof["top"], traced=traced, counted=counted, short=short)
+    print(f"  ({smi})")
+    return out
+
+
+def check_audit(dev, smi, profiles) -> dict:
+    """``utils.flops.audit`` of one training step at A and B on the card:
+    GFLOP by bucket (products by precision class, the vargp_torch
+    operators by their cost functions), movement MB, the speed of light,
+    and ``achieved`` against the step's device-busy time (the profile
+    phase's) and its CUDA-event time; the forward alone beside it."""
+    from vargp_tpu_torch.models import vargp as V
+    from vargp_tpu_torch.utils.flops import achieved, audit
+
+    out = {}
+    for name in ("A", "B"):
+        t = train_inputs(name, dev)
+
+        def fwd():
+            with torch.no_grad():
+                return V.loss(t["params"], t["prev"], t["prior"], t["x"], t["y"], t["noise"],
+                              t["cfg"], weights=t["w"], chain_mask=t["mask"], device=dev)
+
+        summary, _, moves, ops = audit(lambda: step(t))
+        fwd_summary = audit(fwd)[0]
+        if summary["gflop_f32"] <= fwd_summary["gflop_f32"]:
+            raise AssertionError(f"audit {name}: the step's products ({summary['gflop_f32']}) "
+                                 f"are no more than the forward's: the backward was not seen")
+        event_ms = time_ms(lambda: step(t), reps=5 if name == "B" else 10)
+        busy_ms = profiles[name]["busy_ms"]
+        out[name] = dict(summary=summary, forward=fwd_summary, ops=ops, moves=dict(moves),
+                         event_ms=event_ms, busy_ms=busy_ms,
+                         vs_busy=achieved(summary, busy_ms / 1e3),
+                         vs_events=achieved(summary, event_ms / 1e3))
+        print(f"  audit {name}: " + "  ".join(f"{k} {v:.5f}" for k, v in summary.items())
+              + f"; forward alone gflop_f32 {fwd_summary['gflop_f32']:.5f}")
+        print(f"    operators: " + "; ".join(f"{k} {v['calls']}x {v['flops'] / 1e9:.4f} GFLOP "
+                                              f"{v['bytes'] / 1e6:.2f} MB" for k, v in ops.items()))
+        print(f"    movement bytes by op: " + ", ".join(f"{k} {v / 1e6:.2f} MB"
+                                                        for k, v in moves.items()))
+        print(f"    achieved against the device-busy {busy_ms:.4f} ms: {out[name]['vs_busy']}; "
+              f"against the step by CUDA events {event_ms:.4f} ms: {out[name]['vs_events']}")
+    print(f"  ({smi})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2626,9 +2877,16 @@ def main() -> int:
     regression_per_step = {n: v // (REGRESSION["epochs"] + 1)
                            for n, v in regression["launches"].items()}
 
+    print("the exported predictor (A's chain at the evaluation's budget), loaded in a fresh "
+          "process, under the default and the fused route:")
+    exported = {route: check_export(dev, route) for route in ("default", "fused")}
+    print("per-op device profiles of one training step at A, B, D (global) and E (Retrain):")
+    profiles = check_profiles(dev, smi)
+    print("the FLOP audit of one training step at A and B:")
+    check_audit(dev, smi, profiles)
+
     print("timings (ms per call):")
     spd = flag_k3["(30, 128, 128)"]
-    G = spd.shape[0]
     grams = gram_cases(dev)
     # Each entry's cases are the shapes it is timed at (kernel_times'
     # arguments); the row holds the first case's numbers, the others nested
@@ -2649,7 +2907,7 @@ def main() -> int:
                 fn=lambda: diag_chol(spd), plain=lambda: diag_chol_plain(spd),
                 library=lambda: torch.linalg.cholesky(spd),
                 # the lower triangle is read, the whole factor written
-                flops=G * 128.0 ** 3 / 3.0, nbytes=4.0 * G * (128 * 129 / 2 + 128 * 128))},
+                **work(diag_chol.cost(spd.shape)))},
         ),
         dict(
             name="cross_gram", route="cuda", source="vargp_tpu_torch/csrc/cross_gram.cu",
@@ -2660,18 +2918,13 @@ def main() -> int:
             replaces="vargp_tpu/ops/pallas/rbf_gram.py:47", cases=grams["rbf_gram"],
         ),
     ]
-    # K8, K7 and K6: the lower triangle read once, each factor written
-    # whole; K7 S^3/3 FMAs' worth of operations, K6 twice that (the
-    # factor and the inverse)
+    # K8, K7 and K6 (their wrappers' cost functions): the lower triangle
+    # read once, each factor written whole; K7 S^3/3 FMAs' worth of
+    # operations, K6 twice that (the factor and the inverse)
     from vargp_tpu_torch.ops import dispatch
     from vargp_tpu_torch.ops.cuda.chol import cholesky, cholesky_plain
     from vargp_tpu_torch.ops.cuda.chol_inv import chol_inv, chol_inv_plain
     from vargp_tpu_torch.ops.cuda.diag_chol import diag_chol_chunked
-
-    def chol_work(K, n_out, n_factor):
-        G, S = K.shape[0], K.shape[-1]
-        return dict(flops=n_factor * G * S ** 3 / 3.0,
-                    nbytes=4.0 * G * (S * (S + 1) / 2 + n_out * S * S))
 
     def cholinv_library(K):
         L = torch.linalg.cholesky(K)
@@ -2683,18 +2936,18 @@ def main() -> int:
         replaces="vargp_tpu/ops/pallas/chol_panel.py:311", path=None,
         cases={"(30, 128, 128)": dict(
             fn=lambda: diag_chol_chunked(k8in), plain=lambda: diag_chol_plain(k8in),
-            library=lambda: torch.linalg.cholesky(k8in), **chol_work(k8in, 1, 1))},
+            library=lambda: torch.linalg.cholesky(k8in), **work(diag_chol_chunked.cost(k8in.shape)))},
     ))
     k5_cases, k7_cases = global_kernel_cases(k5_global, k7_global)
     k5_small_cases, k7_small_cases = global_kernel_cases(k5_small, k7_small)
     k5_cases.update(k5_small_cases)
     k7_cases.update(k7_small_cases)
     next(e for e in entries if e["name"] == "rbf_gram")["cases"].update(k5_cases)
-    for n, path, src, rpl, fn, plain, lib, n_out, n_f in (
+    for n, path, src, rpl, fn, plain, lib in (
         ("cholesky", "solve", "chol.cu", "chol.py:82", cholesky, cholesky_plain,
-         torch.linalg.cholesky, 1, 1),
+         torch.linalg.cholesky),
         ("chol_inv", "fused", "chol_inv.cu", "chol_inv.py:117", chol_inv, chol_inv_plain,
-         cholinv_library, 2, 2),
+         cholinv_library),
     ):
         entries.append(dict(
             name=n, route="cuda", source=f"vargp_tpu_torch/csrc/{src}",
@@ -2704,7 +2957,7 @@ def main() -> int:
                 fn=functools.partial(fn, flag_chol[cfg_name]),
                 plain=functools.partial(plain, flag_chol[cfg_name]),
                 library=functools.partial(lib, flag_chol[cfg_name]),
-                **chol_work(flag_chol[cfg_name], n_out, n_f)) for cfg_name in ("A", "B")},
+                **work(fn.cost(flag_chol[cfg_name].shape))) for cfg_name in ("A", "B")},
         ))
     next(e for e in entries if e["name"] == "cholesky")["cases"].update(k7_cases)
     kernels = []
@@ -2742,9 +2995,11 @@ def main() -> int:
             "name": n, "route": e["route"], "source": e["source"], "replaces": e["replaces"],
             # launches: the counted train steps of the kernel's paths (A, B,
             # C on its route; the global SVGP's two; Retrain's task 0 and 1
-            # and a regression step)
+            # and a regression step) and the exported predictor's call
+            # under each route
             "launches": sum(per_step.values()) + sum(global_step_launches.values())
-            + sum(retrain_step_launches.values()) + regression_per_step[n],
+            + sum(retrain_step_launches.values()) + regression_per_step[n]
+            + sum(v["launches"][n] for v in exported.values()),
             "launches_per_step": per_step, "path": path,
             "protocol_launches": protocol["launches"][n],
             "global_launches_per_step": global_step_launches,
@@ -2754,6 +3009,8 @@ def main() -> int:
             "retrain_protocol_launches": retrain_protocol["launches"][n],
             "regression_launches_per_step": regression_per_step[n],
             "regression_launches": regression["launches"][n],
+            "export_launches_per_call": {r: v["launches"][n] for r, v in exported.items()},
+            "traced_per_step": {k: v["traced"].get(n) for k, v in profiles.items()},
             "max_abs_err": errs[n], **t, **{f"at_{lb}": times[lb] for lb in rest},
         })
         if n in f64:  # the Grams against float64

@@ -12,3 +12,19 @@ import torch
 # product or convolution.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+__version__ = "0.1.0"
+
+# train first: models.vargp reads train.optim, and train.loop reads models
+from vargp_tpu_torch import train  # noqa: E402, I001
+from vargp_tpu_torch import data, gpmath, kernels, likelihoods, models  # noqa: E402
+
+__all__ = [
+    "gpmath",
+    "kernels",
+    "likelihoods",
+    "models",
+    "train",
+    "data",
+    "__version__",
+]

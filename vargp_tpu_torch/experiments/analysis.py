@@ -1,9 +1,10 @@
 """Chain-reload analysis: the T x T accuracy and entropy matrices of a
 saved checkpoint chain.
 
-Counterpart of ``vargp_tpu/experiments/analysis.py`` (the S-MNIST,
-P-MNIST, Split-Digits and toy analyses, and the global SVGP's S-MNIST and
-toy analyses; the comparison deliverables and the plots come later).
+Counterpart of ``vargp_tpu/experiments/analysis.py``: the S-MNIST,
+P-MNIST, Split-Digits and toy analyses, the global SVGP's S-MNIST and toy
+analyses, and the method comparisons (``compare_methods``,
+``compare_vcl``).
 Task t's VAR-GP model is [ckpt0 .. ckpt_{t-1}] frozen plus ckpt_t, padded
 to the chain's length with ``pad_chain``; the global SVGP's is ckpt_t
 alone (its predictions never read the earlier tasks).  Row t of a matrix
@@ -19,7 +20,16 @@ cell can be replayed elsewhere (on the CPU, say).
 
 The default output file is ``analysis_torch.json`` beside the chain,
 never the minted ``analysis.json``; the toys' are
-``toy_density_torch.json`` and ``density_grid_torch.npz``.
+``toy_density_torch.json`` and ``density_grid_torch.npz``.  The figures
+the JAX analyses draw beside their JSON take the port's names too:
+``matrices_torch.png``, ``inducing_torch.png`` (S-MNIST, P-MNIST,
+Split-Digits), ``toy_density_torch.png``, in the directory of the JSON
+(``out_json``'s when one is given, so that an analysis of a minted chain
+into another directory writes nothing beside the chain); without
+matplotlib (the card's machine) each is skipped with one printed line,
+and the JSON is written.
+``compare_vcl`` writes ``vcl_overlay_torch.json`` and
+``vcl_overlay_<name>_torch.png``, never over the minted ``vcl_overlay*``.
 """
 
 import json
@@ -29,6 +39,7 @@ import numpy as np
 import torch
 
 from vargp_tpu_torch import data
+from vargp_tpu_torch.experiments import plots
 from vargp_tpu_torch.kernels import MLPParams, RBFParams
 from vargp_tpu_torch.kernels.deep import DEFAULT_HIDDEN
 from vargp_tpu_torch.models import global_svgp as G
@@ -39,6 +50,10 @@ from vargp_tpu_torch.utils.checkpoint import load_chain
 from vargp_tpu_torch.utils.convert import params_from_numpy
 
 OUT_NAME = "analysis_torch.json"
+MATRICES_PNG = "matrices_torch.png"
+INDUCING_PNG = "inducing_torch.png"
+TOY_DENSITY_PNG = "toy_density_torch.png"
+VCL_JSON = "vcl_overlay_torch.json"
 
 
 def params_template(cfg: V.VARGPConfig) -> V.VARGPParams:
@@ -132,6 +147,21 @@ def _write(summary: dict, log_dir: str, out_json: str | None) -> dict:
     return summary
 
 
+def _figure_dir(log_dir: str, out_json: str | None) -> str:
+    """Where an analysis's figures go: beside its JSON, ``out_json``'s
+    directory when one is given, else the chain's."""
+    return log_dir if out_json is None else os.path.dirname(os.path.abspath(out_json))
+
+
+def _figures(acc, ent, fig_dir: str, z=None, img_shape=(28, 28)) -> None:
+    """The matrices' figure and, given the last task's inducing inputs
+    ``z``, the inducing-input images, in ``fig_dir``."""
+    plots.draw_or_skip(plots.plot_matrices, acc, ent, out_path=os.path.join(fig_dir, MATRICES_PNG))
+    if z is not None:
+        plots.draw_or_skip(plots.plot_inducing_images, z.detach().cpu().numpy(),
+                           out_path=os.path.join(fig_dir, INDUCING_PNG), img_shape=img_shape)
+
+
 def _split_tasks(test_full, n_tasks: int):
     return [data.filter_by_class(test_full, [2 * t, 2 * t + 1]) for t in range(n_tasks)]
 
@@ -146,7 +176,9 @@ def analyze_sdigits(log_dir: str, n_tasks: int = 5, M: int = 20, dkl: bool = Fal
     test_sets = _split_tasks(data.load_digits_dataset(train=False, seed=0), n_tasks)
     acc, ent = accuracy_entropy_matrices(chain, cfg, test_sets, seed=seed, n_f=n_f,
                                          n_var_samples=n_var_samples, device=device)
-    return _write(summarize(acc, ent), log_dir, out_json)
+    summary = _write(summarize(acc, ent), log_dir, out_json)
+    _figures(acc, ent, _figure_dir(log_dir, out_json), chain[-1].z, img_shape=(8, 8))
+    return summary
 
 
 def analyze_smnist(log_dir: str, data_dir=None, n_tasks: int = 5, M: int = 60,
@@ -158,7 +190,9 @@ def analyze_smnist(log_dir: str, data_dir=None, n_tasks: int = 5, M: int = 60,
     test_sets = _split_tasks(data.load_mnist(data_dir, train=False), n_tasks)
     acc, ent = accuracy_entropy_matrices(chain, cfg, test_sets, seed=seed, n_f=n_f,
                                          n_var_samples=n_var_samples, device=device)
-    return _write(summarize(acc, ent), log_dir, out_json)
+    summary = _write(summarize(acc, ent), log_dir, out_json)
+    _figures(acc, ent, _figure_dir(log_dir, out_json), chain[-1].z)
+    return summary
 
 
 def analyze_pmnist(log_dir: str, data_dir=None, n_tasks: int = 10, M: int = 100,
@@ -177,7 +211,9 @@ def analyze_pmnist(log_dir: str, data_dir=None, n_tasks: int = 10, M: int = 100,
     test_sets = [data.apply_permutation(test_full, p) for p in perms]
     acc, ent = accuracy_entropy_matrices(chain, cfg, test_sets, seed=seed, n_f=n_f,
                                          n_var_samples=n_var_samples, device=device)
-    return _write(summarize(acc, ent), log_dir, out_json)
+    summary = _write(summarize(acc, ent), log_dir, out_json)
+    _figures(acc, ent, _figure_dir(log_dir, out_json), chain[-1].z)
+    return summary
 
 
 def toy_density_grid(chain, cfg: V.VARGPConfig, lo: float = -3.0, hi: float = 3.0,
@@ -208,9 +244,10 @@ def analyze_toy(log_dir: str, n_tasks: int = 2, M: int = 20, out_json: str | Non
     (``density_grid_torch.npz``) and the density retention,
     density_retention[t] = the mean predicted probability of the true
     class over task 0's training points under the model after task t
-    (``toy_density_torch.json``, or ``out_json``).  The noise comes from
-    one generator seeded with ``seed``: the grid's draws, then each
-    task's retention draws.  The figure waits for ``plots.py``."""
+    (``toy_density_torch.json``, or ``out_json``), and the density
+    figure (``toy_density_torch.png``).  The noise comes from one generator
+    seeded with ``seed``: the grid's draws, then each task's retention
+    draws."""
     dev = resolve_device(device)
     cfg = V.VARGPConfig(M=M, out_size=4, in_size=2)
     chain = load_task_chain(log_dir, n_tasks, cfg, device=dev)
@@ -219,7 +256,8 @@ def analyze_toy(log_dir: str, n_tasks: int = 2, M: int = 20, out_json: str | Non
                                      n_var_samples=n_var_samples, device=dev)
     np.savez(os.path.join(log_dir, "density_grid_torch.npz"), gx=gx, gy=gy, probs=probs)
 
-    task0 = data.filter_by_class(data.make_toy_dataset(seed=data_seed), [0, 1])
+    toy_all = data.make_toy_dataset(seed=data_seed)
+    task0 = data.filter_by_class(toy_all, [0, 1])
     cfg_eval = V.eval_budget_cfg(cfg, n_f=n_f, n_var_samples=n_var_samples)
     draws = eval_draws(gen, cfg_eval, len(chain), len(task0))
     x0 = torch.from_numpy(task0.data).to(dev)
@@ -236,6 +274,8 @@ def analyze_toy(log_dir: str, n_tasks: int = 2, M: int = 20, out_json: str | Non
     out_json = out_json or os.path.join(log_dir, "toy_density_torch.json")
     with open(out_json, "w") as f:
         json.dump(summary, f, indent=2)
+    plots.draw_or_skip(plots.plot_toy_densities, gx, gy, probs, dataset=toy_all,
+                       out_path=os.path.join(_figure_dir(log_dir, out_json), TOY_DENSITY_PNG))
     print(json.dumps(summary))
     return summary
 
@@ -296,7 +336,9 @@ def analyze_smnist_global(log_dir: str, data_dir=None, n_tasks: int = 5, M: int 
                 a, e = compute_acc_ent(test_set, predict, batch_size=batch_size)
                 acc[t, s] = a
                 ent[t, s] = e / np.log(cfg_eval.out_size)
-    return _write(summarize(acc, ent), log_dir, out_json)
+    summary = _write(summarize(acc, ent), log_dir, out_json)
+    _figures(acc, ent, _figure_dir(log_dir, out_json))
+    return summary
 
 
 def analyze_toy_global(log_dir: str, n_tasks: int = 2, M: int = 20, out_json: str | None = None,
@@ -314,7 +356,8 @@ def analyze_toy_global(log_dir: str, n_tasks: int = 2, M: int = 20, out_json: st
     xs = np.linspace(-3.0, 3.0, n, dtype=np.float32)
     gx, gy = np.meshgrid(xs, xs)
     pts = torch.from_numpy(np.stack([gx.ravel(), gy.ravel()], axis=-1)).to(dev)
-    task0 = data.filter_by_class(data.make_toy_dataset(seed=data_seed), [0, 1])
+    toy_all = data.make_toy_dataset(seed=data_seed)
+    task0 = data.filter_by_class(toy_all, [0, 1])
     x0 = torch.from_numpy(task0.data).to(dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
     out, retention = [], []
@@ -327,7 +370,8 @@ def analyze_toy_global(log_dir: str, n_tasks: int = 2, M: int = 20, out_json: st
             out.append(probs.cpu().numpy().reshape(n, n, -1))
             p0 = G.predict(params, None, x0, ret_noise, cfg_eval, device=dev).cpu().numpy()
             retention.append(float(np.mean(p0[np.arange(len(task0)), task0.targets])))
-    np.savez(os.path.join(log_dir, "density_grid_torch.npz"), gx=gx, gy=gy, probs=np.stack(out))
+    probs = np.stack(out)
+    np.savez(os.path.join(log_dir, "density_grid_torch.npz"), gx=gx, gy=gy, probs=probs)
     summary = dict(
         density_retention=retention, task0_true_class_prob_final=retention[-1],
         grid_n=n, n_f=n_f, n_var_samples=n_var_samples,
@@ -335,5 +379,90 @@ def analyze_toy_global(log_dir: str, n_tasks: int = 2, M: int = 20, out_json: st
     out_json = out_json or os.path.join(log_dir, "toy_density_torch.json")
     with open(out_json, "w") as f:
         json.dump(summary, f, indent=2)
+    plots.draw_or_skip(plots.plot_toy_densities, gx, gy, probs, dataset=toy_all,
+                       out_path=os.path.join(_figure_dir(log_dir, out_json), TOY_DENSITY_PNG))
     print(json.dumps(summary))
     return summary
+
+
+# ---------------------------------------------------------------------------
+# Method comparisons
+# ---------------------------------------------------------------------------
+
+
+def _avg_after_task(m: np.ndarray) -> list:
+    """The average accuracy over the tasks seen so far, after each task."""
+    return [float(np.mean(m[i, : i + 1])) for i in range(m.shape[0])]
+
+
+def compare_methods(ours, baselines: dict, out_json: str | None = None,
+                    out_png: str | None = None) -> dict:
+    """Our accuracy matrix against external baselines (VCL, say): each a
+    T x T accuracy matrix, as an array or a file (.json with an
+    ``acc_matrix`` key, e.g. any analysis's output; .csv; .npy).  Returns
+    {method: {avg_acc_after_task, final_avg_acc, bwt}}, ours under
+    ``vargp_tpu_torch``, and writes it to ``out_json`` and the curves'
+    figure to ``out_png`` when given (the mnist.ipynb cells 6/15/19/24
+    overlay)."""
+    mats = {"vargp_tpu_torch": _load_acc_matrix(ours)}
+    mats.update({k: _load_acc_matrix(v) for k, v in baselines.items()})
+    out = {}
+    for name, m in mats.items():
+        avg_after = _avg_after_task(m)
+        out[name] = dict(avg_acc_after_task=avg_after, final_avg_acc=avg_after[-1],
+                         bwt=compute_bwt(m))
+    if out_json:
+        with open(out_json, "w") as f:
+            json.dump(out, f, indent=2)
+    if out_png:
+        plots.draw_or_skip(plots.plot_method_comparison,
+                           {k: v["avg_acc_after_task"] for k, v in out.items()}, out_path=out_png)
+    return out
+
+
+def compare_vcl(smnist_json: str = "results/smnist_r4/analysis.json",
+                pmnist_json: str = "results/pmnist_r4/analysis.json",
+                out_dir: str = "results/compare") -> dict:
+    """The notebooks' VCL overlay (mnist.ipynb cells 6/19): the average
+    accuracy after each task of the minted analyses beside the VCL curves of
+    ``external_baselines`` (approximate digitizations of the paper's
+    figures).  Writes ``vcl_overlay_torch.json`` and one figure per dataset,
+    ``vcl_overlay_<name>_torch.png``, under ``out_dir``: the minted
+    ``vcl_overlay*`` files are never written over."""
+    from vargp_tpu_torch.experiments import external_baselines as ext
+
+    os.makedirs(out_dir, exist_ok=True)
+    out = {"provenance_vcl": ext.PROVENANCE}
+    for name, ours_json, vcl in (("smnist", smnist_json, ext.VCL_SMNIST),
+                                 ("pmnist", pmnist_json, ext.VCL_PMNIST)):
+        if not os.path.exists(ours_json):
+            print(f"[compare_vcl] {name}: {ours_json} missing, skipped")
+            continue
+        curves = {"VAR-GP (ours, minted)": _avg_after_task(_load_acc_matrix(ours_json))}
+        curves.update({f"{k} (paper, approx)": list(map(float, v)) for k, v in vcl.items()})
+        plots.draw_or_skip(plots.plot_method_comparison, curves,
+                           out_path=os.path.join(out_dir, f"vcl_overlay_{name}_torch.png"))
+        out[name] = dict(curves=curves, final={k: v[-1] for k, v in curves.items()},
+                         ours_source=ours_json)
+    with open(os.path.join(out_dir, VCL_JSON), "w") as f:
+        json.dump(out, f, indent=2)
+    print(json.dumps({k: v["final"] for k, v in out.items() if isinstance(v, dict)}))
+    return out
+
+
+def _load_acc_matrix(src) -> np.ndarray:
+    """A square accuracy matrix from an array or a .json (its
+    ``acc_matrix``, or the list itself), .npy or .csv file."""
+    if isinstance(src, str):
+        if src.endswith(".json"):
+            with open(src) as f:
+                d = json.load(f)
+            src = d["acc_matrix"] if isinstance(d, dict) else d
+        elif src.endswith(".npy"):
+            src = np.load(src)
+        elif src.endswith(".csv"):
+            src = np.loadtxt(src, delimiter=",")
+    m = np.asarray(src, dtype=np.float64)
+    if m.ndim != 2 or m.shape[0] != m.shape[1]:
+        raise ValueError(f"an accuracy matrix must be square, got shape {m.shape}")
+    return m

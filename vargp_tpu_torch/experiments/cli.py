@@ -4,22 +4,15 @@
 
 Values parse as Python literals; each command is a driver function and
 its keywords.  ``--device=cpu|cuda`` picks the device (default: the
-card, and no card is an error: nothing moves to the CPU unasked).  The
-JAX package's commands that are not ported yet exit non-zero, naming
-their ROADMAP item.
+card, and no card is an error: nothing moves to the CPU unasked).  Every
+command of the JAX package's CLI is here; its multi-device and
+multi-process flags raise, naming their ROADMAP item.
 """
 
 import ast
 import inspect
 import sys
 
-# JAX commands still to port -> the ROADMAP item that ports them
-NOT_PORTED = {
-    "compare_methods": "Queue A item 5 (the comparisons and plots)",
-    "compare_vcl": "Queue A item 5 (the comparisons and plots)",
-    "gen_sweep": "Queue A item 5 (sweep.py)",
-    "run_sweep": "Queue A item 5 (sweep.py)",
-}
 # the JAX CLI's multi-process flags
 MULTI_PROCESS_FLAGS = ("coordinator_address", "num_processes", "process_id")
 
@@ -30,6 +23,7 @@ def _commands():
         global_run,
         regression,
         retrain_run,
+        sweep,
         vargp_run,
     )
 
@@ -50,6 +44,10 @@ def _commands():
         "analyze_smnist_global": analysis.analyze_smnist_global,
         "toy_retrain": retrain_run.toy,
         "regression": regression.regression,
+        "compare_methods": analysis.compare_methods,
+        "compare_vcl": analysis.compare_vcl,
+        "gen_sweep": sweep.generate_vargp_sweep,
+        "run_sweep": sweep.run_sweep,
     }
 
 
@@ -82,13 +80,8 @@ def main(argv=None):
         for name, fn in cmds.items():
             print(f"  {name}{inspect.signature(fn)}")
         print("\n--device=cpu|cuda picks the device (default cuda: the card).")
-        print("not ported yet: " + ", ".join(f"{k} ({v})" for k, v in NOT_PORTED.items()))
         return 0
     name = argv[0]
-    if name in NOT_PORTED:
-        print(f"{name!r} is not ported to vargp_tpu_torch yet: ROADMAP {NOT_PORTED[name]}",
-              file=sys.stderr)
-        return 2
     if name not in cmds:
         print(f"unknown command {name!r}; run with --help", file=sys.stderr)
         return 1

@@ -24,6 +24,7 @@ import numpy as np
 
 from vargp_tpu_torch import data
 from vargp_tpu_torch.data.tasks import concat
+from vargp_tpu_torch.experiments import plots
 from vargp_tpu_torch.experiments.analysis import params_template
 from vargp_tpu_torch.models.vargp import VARGPConfig
 from vargp_tpu_torch.ops.device import resolve_device
@@ -283,8 +284,9 @@ def varying_m(ms=(20, 40, 60, 80, 100, 120, 140, 160, 180, 200), data_dir=None, 
     "s_digits"; writes ``varying_M.json``.  ``resume=True`` reads back the
     points whose directory holds a finished run of the same configuration
     (``sweep_point.json``) and resumes the rest from their checkpoints; a
-    point with no final accuracy raises rather than record 0.0.  The figure
-    waits for ``plots.py`` (ROADMAP Queue A item 5)."""
+    point with no final accuracy raises rather than record 0.0.  The
+    figure goes to ``varying_M.png`` beside it (skipped, with one printed
+    line, without matplotlib)."""
     if dataset not in ("s_mnist", "s_digits"):
         raise ValueError(f"dataset={dataset!r}: expected s_mnist or s_digits")
     base = log_dir or _log_dir(f"varying_m_{dataset}" if dataset != "s_mnist" else "varying_m")
@@ -333,4 +335,6 @@ def varying_m(ms=(20, 40, 60, 80, 100, 120, 140, 160, 180, 200), data_dir=None, 
     os.makedirs(base, exist_ok=True)
     with open(os.path.join(base, "varying_M.json"), "w") as f:
         json.dump(results, f, indent=2)
+    plots.draw_or_skip(plots.plot_accuracy_vs_m, results,
+                       out_path=os.path.join(base, "varying_M.png"))
     return results

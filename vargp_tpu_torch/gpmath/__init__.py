@@ -27,7 +27,7 @@ from vargp_tpu_torch.gpmath.linalg import (
     tri_solve,
 )
 from vargp_tpu_torch.gpmath.mvn import diag_normal_kl, mvn_kl, mvn_log_prob, mvn_sample
-from vargp_tpu_torch.gpmath.tril import mat2trilvec, tril_dim, tril_size, vec2tril
+from vargp_tpu_torch.gpmath.tril import mat2trilvec, tril_dim, tril_indices, tril_size, vec2tril
 
 __all__ = [
     "ARPosterior",
@@ -55,6 +55,7 @@ __all__ = [
     "tri_inv",
     "tri_solve",
     "tril_dim",
+    "tril_indices",
     "tril_size",
     "vec2tril",
     "whitened_marginal_diag",

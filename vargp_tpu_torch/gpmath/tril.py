@@ -11,8 +11,16 @@ the port packs row-major everywhere.
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def tril_indices(m: int):
+    """The (rows, cols) int32 index arrays of an m x m lower triangle, in
+    the packing order."""
+    rows, cols = np.tril_indices(m)
+    return np.asarray(rows, dtype=np.int32), np.asarray(cols, dtype=np.int32)
 
 
 def tril_size(m: int) -> int:

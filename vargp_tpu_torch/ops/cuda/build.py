@@ -6,6 +6,12 @@ with ``ctypes``.  No PyTorch headers are involved, so the build takes
 seconds.  It runs at first use, never at import: the library goes into
 ``vargp_tpu_torch/_build/<hash of the sources and flags>/``, so a changed
 source rebuilds and an unchanged one is loaded as it is.
+
+Each kernel is also a PyTorch operator, ``vargp_torch::<name>``
+(:func:`kernel_op`): a CUDA implementation (the launch), a CPU one (the
+plain version), a fake one (shapes, dtypes and strides, with the real
+one's checks) and a cost function, so that ``torch.export`` keeps a
+launch as one graph node and ``utils.flops`` bills it by its cost.
 """
 
 import ctypes
@@ -16,6 +22,13 @@ import subprocess
 from pathlib import Path
 
 import torch
+
+NAMESPACE = "vargp_torch"
+# "vargp_torch::<name>" -> cost(*input shapes) -> (flops, bytes): the
+# unpadded work the kernel does, and the bytes of its inputs read once
+# and its outputs written once
+COSTS = {}
+_LIB = torch.library.Library(NAMESPACE, "DEF")  # the operators' registrations
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -151,6 +164,36 @@ def check_f32_contiguous(name: str, *tensors: torch.Tensor) -> None:
                 f"{name}: kernels take contiguous float32 tensors, got "
                 f"{t.dtype} with strides {t.stride()}"
             )
+
+
+def kernel_op(name: str, schema: str, *, cpu, cuda, fake, cost):
+    """Register one kernel as the operator ``vargp_torch::<name>`` with
+    ``schema`` (its arguments and results): ``cpu`` runs for CPU tensors,
+    ``cuda`` (the launch) for CUDA tensors, ``fake`` for fake and meta
+    tensors (shapes only); ``cost`` goes into :data:`COSTS`.  Returns the
+    operator, a callable.  ``torch.library.Library``'s define and impl,
+    not ``torch.library.custom_op``, whose Python layers around every call
+    cost the host more."""
+    _LIB.define(f"{name}{schema}")
+    _LIB.impl(name, cpu, "CPU")
+    _LIB.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"{NAMESPACE}::{name}", fake, lib=_LIB)
+    COSTS[f"{NAMESPACE}::{name}"] = cost
+    return getattr(getattr(torch.ops, NAMESPACE), name).default
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """True for a tensor on a CUDA device, real or fake."""
+    return t.device.type == "cuda"
+
+
+def result_dtype(*tensors: torch.Tensor) -> torch.dtype:
+    """The dtype that the plain versions' arithmetic gives ``tensors``
+    (float32 on the card, where the kernels take nothing else)."""
+    dt = tensors[0].dtype
+    for t in tensors[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return dt
 
 
 def launch(name: str, device: torch.device, *args) -> None:

@@ -1,18 +1,20 @@
 """K7: batched dense lower Cholesky of (..., S, S) SPD matrices
 (``csrc/chol.cu``).
 
-Replaces ``vargp_tpu/ops/pallas/chol.py::cholesky_pallas``.  A CUDA tensor
-launches the kernel, one thread-block cluster per matrix; a CPU tensor
-takes :func:`cholesky_plain`, the same right-looking panel algorithm in
-PyTorch ops, step for step.  Only the lower triangle of K is read; a
+Replaces ``vargp_tpu/ops/pallas/chol.py::cholesky_pallas``.  The operator
+``vargp_torch::cholesky`` launches the kernel for a CUDA tensor, one
+thread-block cluster per matrix, and takes :func:`cholesky_plain` for a
+CPU tensor: the same right-looking panel algorithm in PyTorch ops, step
+for step.  Only the lower triangle of K is read; a
 non-positive pivot gives NaN, as the TPU kernel does.  The caller adds the
 jitter.
 """
 
 import torch
 
-from vargp_tpu_torch.ops.cuda.build import check_f32_contiguous, launch, on_cpu
-from vargp_tpu_torch.ops.cuda.diag_chol import BS, diag_chol_plain
+from vargp_tpu_torch.ops.cuda.build import (check_f32_contiguous, kernel_op, launch, on_card,
+                                            on_cpu)
+from vargp_tpu_torch.ops.cuda.diag_chol import BS, chol_cost, diag_chol_plain
 
 CHUNK = 32  # the kernel's column chunk inside a diagonal block
 MAX_CLUSTER = 8  # the portable thread-block cluster size
@@ -112,13 +114,21 @@ def cholesky_plain(K: torch.Tensor) -> torch.Tensor:
     return blocked_plain(K)[0]
 
 
+def check_square(name: str, K: torch.Tensor) -> None:
+    """K6's and K7's checks: square matrices on every device; contiguous
+    float32 on the card."""
+    S = K.shape[-1]
+    if K.dim() < 2 or K.shape[-2] != S:
+        raise ValueError(f"{name}: square matrices expected, got {tuple(K.shape)}")
+    if on_card(K):
+        check_f32_contiguous(name, K)
+
+
 def launch_clustered(wrapper, symbol: str, K: torch.Tensor, *outs: torch.Tensor) -> int:
     """Launch K7's or K6's kernel on (G, S, S) matrices with one cluster of
     :func:`cluster_size` blocks per matrix; returns the cluster size."""
     S = K.shape[-1]
-    if K.dim() < 2 or K.shape[-2] != S:
-        raise ValueError(f"{wrapper.__name__}: square matrices expected, got {tuple(K.shape)}")
-    check_f32_contiguous(wrapper.__name__, K)
+    check_square(wrapper.__name__, K)
     if K.data_ptr() % 16:  # cp.async reads 16-byte rows
         K = K.clone()
     G = K.numel() // max(S * S, 1)
@@ -129,13 +139,31 @@ def launch_clustered(wrapper, symbol: str, K: torch.Tensor, *outs: torch.Tensor)
     return C
 
 
-def cholesky(K: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factor of each (..., S, S) SPD matrix, through K7."""
-    if on_cpu(K):
-        return cholesky_plain(K)
+def _cpu(K):
+    check_square("cholesky", K)
+    return cholesky_plain(K)
+
+
+def _cuda(K):
     L = torch.empty_like(K)
     launch_clustered(cholesky, "vargp_chol", K, L)
     return L
 
 
+def _fake(K):
+    check_square("cholesky", K)
+    return torch.empty_like(K)
+
+
+cholesky_op = kernel_op("cholesky", "(Tensor K) -> Tensor", cpu=_cpu, cuda=_cuda, fake=_fake,
+                        cost=chol_cost)
+
+
+def cholesky(K: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of each (..., S, S) SPD matrix, through K7."""
+    on_cpu(K)  # raises on another device
+    return cholesky_op(K)
+
+
 cholesky.launches = 0
+cholesky.cost = chol_cost

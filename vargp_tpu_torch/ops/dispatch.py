@@ -1,5 +1,6 @@
 """Kernel dispatch: the generic RBF Gram and the Gram factorisations, each
-with its backward rule.
+with its backward rule, and the pairwise squared distance (``sq_dist``,
+plain PyTorch, as in the JAX package).
 
 Counterpart of ``vargp_tpu/ops/dispatch.py``.  Dispatch is by the
 tensors' device: the kernel wrappers in ``ops.cuda`` launch their kernels
@@ -265,6 +266,16 @@ class _RbfGram(torch.autograd.Function):
             dsy = torch.matmul(W.transpose(-1, -2), sx) - torch.sum(W, dim=-2)[..., None] * sy
         d_gamma2 = torch.sum(W, dim=(-2, -1)) / torch.clamp(gamma2, min=1e-30)
         return dsx, dsy, d_gamma2
+
+
+def sq_dist(sx: torch.Tensor, sy: torch.Tensor) -> torch.Tensor:
+    """Pairwise squared distances |sx_i - sy_j|^2, sx (..., M, D) and sy
+    (..., N, D) -> (..., M, N), as |a|^2 - 2 <a, b> + |b|^2 clamped at 0
+    (``_sq_dist_xla``, vargp_tpu/ops/dispatch.py:45-56)."""
+    xx = torch.sum(sx * sx, dim=-1)
+    yy = torch.sum(sy * sy, dim=-1)
+    xy = torch.einsum("...md,...nd->...mn", sx, sy)
+    return torch.clamp(xx[..., :, None] - 2.0 * xy + yy[..., None, :], min=0.0)
 
 
 def rbf_gram(sx: torch.Tensor, sy: torch.Tensor, gamma2: torch.Tensor) -> torch.Tensor:
