@@ -153,7 +153,8 @@ result) on a failure:
    their cost functions), movement MB, the speed of light on the H100,
    ``achieved`` against the step's device-busy time and its CUDA-event
    time, the card's name and power limit beside them.  The bounds of
-   phase 11 come from the same cost functions (``<wrapper>.cost``).
+   phase 11 come from the same cost functions and peaks (``build.cost``:
+   operations, bytes and precision class; ``utils.flops.bound_s``).
 
 The line before the last two is one JSON object ``{"kernels": [...]}``; then
 the card's ``nvidia-smi`` name and power limit; the last line is
@@ -283,13 +284,6 @@ SMALL_GRAMS = {
 SMALL_CHOL = {"retrain chain": (12, 40), "retrain frozen": (12, 20), "regression": (3, 24),
               "regression RMSE": (16, 24)}
 
-# H100 SXM rates for the bound (NVIDIA data sheet): f32 on the CUDA cores
-# and HBM3 bandwidth.
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
-# The Grams (K1, K2, K4, K5), K6 and K7 multiply on the tensor cores in
-# 3xTF32: three TF32 products (495 TFLOP/s dense) per f32 product
-PEAK_TF32X3_FLOPS = 495e12 / 3
 # The deep kernel's features: phi = 784-256-256-64
 DKL_FEATURES = 64
 # The Grams at the shapes the paths give them, (H, O, S, B, D): K1 at A's
@@ -462,16 +456,20 @@ def cold_ms(fn, reps: int = 10, flush_bytes: int = 256 << 20) -> float:
     return sum(s.elapsed_time(e) for s, e in pairs) / reps
 
 
-def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
-    t_ops = flops / peak * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+def bound(flops: float, nbytes: float, precision: str = "f32"):
+    """The least ms for this work on the H100 and what sets it, at the
+    H100 peaks of ``utils.flops`` (``bound_s``): operations at
+    ``precision``'s rate, bytes at the memory rate."""
+    from vargp_tpu_torch.utils.flops import bound_s
+
+    t, by = bound_s(flops, nbytes, precision)
+    return t * 1e3, by
 
 
 def work(cost) -> dict:
-    """kernel_times' ``flops`` and ``nbytes`` from a wrapper's cost function's
-    (flops, bytes): the formula the FLOP audit bills the operator by."""
-    return dict(flops=float(cost[0]), nbytes=float(cost[1]))
+    """kernel_times' ``flops``, ``nbytes`` and ``precision`` from an
+    operator's cost (``build.cost``): what the FLOP audit bills it by."""
+    return dict(flops=float(cost.flops), nbytes=float(cost.bytes), precision=cost.precision)
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1491,11 +1489,12 @@ def time_k3(blocks: dict) -> dict:
     """K3 at each shape of ``blocks`` (views as the paths give them): device
     time per launch, CUDA events around back-to-back calls, cold, the bound,
     and torch.linalg.cholesky on the same view by device time and events."""
+    from vargp_tpu_torch.ops.cuda import build
     from vargp_tpu_torch.ops.cuda.diag_chol import diag_chol
 
     out = {}
     for label, A in blocks.items():
-        b_ms, b_by = bound(*diag_chol.cost(A.shape))
+        b_ms, b_by = bound(*build.cost("diag_chol", A.shape))
         fn, lib = (lambda: diag_chol(A)), (lambda: torch.linalg.cholesky(A))
         out[label] = {"ms": device_ms(fn, one_kernel=True), "event_ms": time_ms(fn), "cold_ms": cold_ms(fn),
                       "bound_ms": b_ms, "bound_by": b_by, "library_ms": device_ms(lib),
@@ -1505,19 +1504,19 @@ def time_k3(blocks: dict) -> dict:
     return out
 
 
-def kernel_times(fn, plain, library, flops, nbytes, peak=PEAK_F32_FLOPS, one_kernel=True,
+def kernel_times(fn, plain, library, flops, nbytes, precision="f32", one_kernel=True,
                  **info) -> dict:
     """One kernel's numbers at one shape: ``info`` (its shape, say), then
     its device time per call (``device_ms``, per traced launch when ``fn``
     launches one kernel), CUDA events around back-to-back calls, cold, the
     plain version's and the library call's device times, the bound at
-    ``peak`` (and, where ``peak`` is another, at the f32 rate), the work and
+    ``precision``'s peak (and, where that is another, at the f32 rate), the work and
     the effective TFLOP/s."""
     ms = device_ms(fn, one_kernel=one_kernel)
     t = dict(info, ms=ms, event_ms=time_ms(fn), cold_ms=cold_ms(fn),
              plain_ms=device_ms(plain, reps=5, warmup=1), library_ms=device_ms(library))
-    t["bound_ms"], t["bound_by"] = bound(flops, nbytes, peak)
-    if peak != PEAK_F32_FLOPS:
+    t["bound_ms"], t["bound_by"] = bound(flops, nbytes, precision)
+    if precision != "f32":
         t["bound_f32_ms"], t["bound_f32_by"] = bound(flops, nbytes)
     t.update(gflop=flops / 1e9, mbytes=nbytes / 1e6, tflops=flops / ms / 1e9)
     return t
@@ -1536,6 +1535,7 @@ def gram_case(n, H, O, S, B, D, rng, dev) -> dict:
     once, the output written once), at the 3xTF32 rate the kernels multiply
     at.  K5 takes G = H * O Grams of features (K_zz when B = 0: the
     symmetric mode)."""
+    from vargp_tpu_torch.ops.cuda import build
     from vargp_tpu_torch.ops.cuda.cross_gram import cross_gram, cross_gram_plain
     from vargp_tpu_torch.ops.cuda.rbf_gram import rbf_gram, rbf_gram_plain
     from vargp_tpu_torch.ops.cuda.sym_gram import sym_gram, sym_gram_plain
@@ -1546,13 +1546,12 @@ def gram_case(n, H, O, S, B, D, rng, dev) -> dict:
         sz, sx, g2 = dkl_features(rng, G, S, max(B, 1), D, dev)
         g3 = g2[:, None, None]
         other, N = (sz, S) if B == 0 else (sx, B)
-        flops, nbytes = (rbf_gram.sym_cost(sz.shape, g2.shape) if B == 0
-                         else rbf_gram.cost(sz.shape, other.shape, g2.shape))
         return dict(
             shape=[G, S, N, D], fn=lambda: rbf_gram(sz, other, g2),
             plain=lambda: rbf_gram_plain(sz, other, g2),
             library=lambda: g3 * torch.exp(-0.5 * torch.cdist(sz, other).square()),
-            flops=flops, nbytes=nbytes, peak=PEAK_TF32X3_FLOPS)
+            **work(build.cost("rbf_gram_sym", sz.shape, g2.shape) if B == 0
+                   else build.cost("rbf_gram", sz.shape, other.shape, g2.shape)))
     z, x, invs, invs2, gamma2 = gram_inputs(rng, O, S, D, H, max(B, 1), dev)
     g4 = gamma2[:, None, None, None]
     if n in ("sym_gram", "sym_gram_tri"):
@@ -1562,15 +1561,14 @@ def gram_case(n, H, O, S, B, D, rng, dev) -> dict:
             shape=[H, O, S, D], fn=lambda: kernel(z, invs, gamma2),
             plain=lambda: sym_gram_plain(z, invs, gamma2),
             library=lambda: g4 * torch.exp(-0.5 * torch.cdist(sz, sz).square().view(H, O, S, S)),
-            **work(kernel.cost(z.shape, invs.shape, gamma2.shape)), peak=PEAK_TF32X3_FLOPS)
+            **work(build.cost(n, z.shape, invs.shape, gamma2.shape)))
     zw = (z[None] * invs2.sqrt()[:, None, None, :]).reshape(H * O, S, D)
     xw = (x[None] * invs2.sqrt()[:, None, :])[:, None].expand(H, O, B, D).reshape(H * O, B, D)
     return dict(
         shape=[H, O, S, B, D], fn=lambda: cross_gram(z, x, invs2, gamma2),
         plain=lambda: cross_gram_plain(z, x, invs2, gamma2),
         library=lambda: g4 * torch.exp(-0.5 * torch.cdist(zw, xw).square().view(H, O, S, B)),
-        **work(cross_gram.cost(z.shape, x.shape, invs2.shape, gamma2.shape)),
-        peak=PEAK_TF32X3_FLOPS)
+        **work(build.cost("cross_gram", z.shape, x.shape, invs2.shape, gamma2.shape)))
 
 
 def gram_cases(dev) -> dict:
@@ -1989,6 +1987,7 @@ def global_kernel_cases(k5_inputs, k7_inputs) -> tuple[dict, dict]:
     outputs written once; a self-Gram's mirrored pairs once, K7's S^3/3
     multiply-adds' worth: the wrappers' cost functions) at the 3xTF32
     rate."""
+    from vargp_tpu_torch.ops.cuda import build
     from vargp_tpu_torch.ops.cuda.chol import cholesky, cholesky_plain
     from vargp_tpu_torch.ops.cuda.rbf_gram import rbf_gram, rbf_gram_plain
 
@@ -2001,16 +2000,16 @@ def global_kernel_cases(k5_inputs, k7_inputs) -> tuple[dict, dict]:
             shape=[G, S, N, D], fn=functools.partial(rbf_gram, a, b, g),
             plain=functools.partial(rbf_gram_plain, a, b, g),
             library=lambda a=a, b=b, g3=g3: g3 * torch.exp(-0.5 * torch.cdist(a, b).square()),
-            **work(rbf_gram.sym_cost(a.shape, g.shape) if a is b
-                   else rbf_gram.cost(a.shape, b.shape, g.shape)), peak=PEAK_TF32X3_FLOPS)
+            **work(build.cost("rbf_gram_sym", a.shape, g.shape) if a is b
+                   else build.cost("rbf_gram", a.shape, b.shape, g.shape)))
     k7 = {}
     for label, K in k7_inputs.items():
         G, S = K.shape[0], K.shape[-1]
         k7[label] = dict(
             shape=[G, S, S], fn=functools.partial(cholesky, K),
             plain=functools.partial(cholesky_plain, K),
-            library=functools.partial(torch.linalg.cholesky, K), peak=PEAK_TF32X3_FLOPS,
-            **work(cholesky.cost(K.shape)))
+            library=functools.partial(torch.linalg.cholesky, K),
+            **work(build.cost("cholesky", K.shape)))
     return k5, k7
 
 
@@ -2625,7 +2624,16 @@ def check_export(dev, route: str = "default") -> dict:
              for k, shape in E.noise_shapes(cfg_eval, B).items()}
     want = {k: 0 for k in counters()}
     want.update(EXPORT["launches"][route])
-    tmp = tempfile.mkdtemp(prefix="vargp_export_")
+    with tempfile.TemporaryDirectory(prefix="vargp_export_") as tmp:
+        return _check_export(dev, route, tmp, want, cfg, cfg_eval, params, prev, x, noise)
+
+
+def _check_export(dev, route, tmp, want, cfg, cfg_eval, params, prev, x, noise) -> dict:
+    """check_export's body, its files in the directory ``tmp``."""
+    from vargp_tpu_torch.models import vargp as V
+    from vargp_tpu_torch.utils import export as E
+
+    B, n_f, n_var = EXPORT["batch_size"], EXPORT["n_f"], EXPORT["n_var_samples"]
     path = os.path.join(tmp, "predictor.pt2")
     with route_env(route):
         t0 = time.perf_counter()
@@ -2907,7 +2915,7 @@ def main() -> int:
                 fn=lambda: diag_chol(spd), plain=lambda: diag_chol_plain(spd),
                 library=lambda: torch.linalg.cholesky(spd),
                 # the lower triangle is read, the whole factor written
-                **work(diag_chol.cost(spd.shape)))},
+                **work(build.cost("diag_chol", spd.shape)))},
         ),
         dict(
             name="cross_gram", route="cuda", source="vargp_tpu_torch/csrc/cross_gram.cu",
@@ -2936,7 +2944,7 @@ def main() -> int:
         replaces="vargp_tpu/ops/pallas/chol_panel.py:311", path=None,
         cases={"(30, 128, 128)": dict(
             fn=lambda: diag_chol_chunked(k8in), plain=lambda: diag_chol_plain(k8in),
-            library=lambda: torch.linalg.cholesky(k8in), **work(diag_chol_chunked.cost(k8in.shape)))},
+            library=lambda: torch.linalg.cholesky(k8in), **work(build.cost("diag_chol_chunked", k8in.shape)))},
     ))
     k5_cases, k7_cases = global_kernel_cases(k5_global, k7_global)
     k5_small_cases, k7_small_cases = global_kernel_cases(k5_small, k7_small)
@@ -2953,11 +2961,11 @@ def main() -> int:
             name=n, route="cuda", source=f"vargp_tpu_torch/csrc/{src}",
             replaces=f"vargp_tpu/ops/pallas/{rpl}", path=path,
             cases={cfg_name: dict(
-                cluster=clusters[cfg_name], peak=PEAK_TF32X3_FLOPS,
+                cluster=clusters[cfg_name],
                 fn=functools.partial(fn, flag_chol[cfg_name]),
                 plain=functools.partial(plain, flag_chol[cfg_name]),
                 library=functools.partial(lib, flag_chol[cfg_name]),
-                **work(fn.cost(flag_chol[cfg_name].shape))) for cfg_name in ("A", "B")},
+                **work(build.cost(n, flag_chol[cfg_name].shape))) for cfg_name in ("A", "B")},
         ))
     next(e for e in entries if e["name"] == "cholesky")["cases"].update(k7_cases)
     kernels = []

@@ -5,14 +5,17 @@
 
 On one card, times N back-to-back calls of K1 (``sym_gram``) at a tiny
 shape (2 x 8 x 8 rows of 4 features: the host, not the card, sets the
-pace) three ways, by the host clock around the calls and a final
-synchronise: the wrapper (its device check, the operator's dispatch, the
-launch), the operator's CUDA implementation called directly (the launch
-and its checks, no dispatch), and the same implementation's ctypes launch
-alone.  The differences are the dispatcher's and the checks' host
-microseconds per call, which a training step pays once per kernel launch
-(5 at A).  The last lines are the card's name and power limit and one JSON
-object.
+pace) four ways, by the host clock around the calls and a final
+synchronise, in turns, best of three: the wrapper (the operator as the
+port registers it, ``torch.library.Library``'s define and impl, and its
+launch); the same launch registered instead with
+``torch.library.custom_op`` (under the namespace ``vargp_overhead``, this
+script's own); the operator's CUDA implementation called directly (the
+launch and its checks, no dispatch); and the same implementation's
+ctypes launch alone.  The differences are the dispatch's and the
+checks' host microseconds per call, which a training step pays once per
+kernel launch (5 at A and D, 7 at E).  The last lines are the card's
+name and power limit and one JSON object.
 """
 
 import argparse
@@ -57,18 +60,24 @@ def main() -> int:
     invs, g = torch.ones(2, 4, device=dev), torch.ones(2, device=dev)
     out = torch.empty(2, 8, 8, 8, device=dev)
 
+    @torch.library.custom_op("vargp_overhead::sym_gram", mutates_args=(), device_types="cuda")
+    def k1_custom_op(z: torch.Tensor, invs: torch.Tensor, gamma2: torch.Tensor) -> torch.Tensor:
+        return K1._cuda(z, invs, gamma2)
+
     def raw():
         build.launch("vargp_sym_gram", dev, z.data_ptr(), invs.data_ptr(), g.data_ptr(),
                      out.data_ptr(), 2, 8, 8, 4)
 
     res = {}
-    for _ in range(2):  # twice, in turns
+    for _ in range(3):  # three times, in turns
         for name, fn in (("wrapper", lambda: K1.sym_gram(z, invs, g)),
+                         ("custom_op", lambda: k1_custom_op(z, invs, g)),
                          ("cuda_impl", lambda: K1._cuda(z, invs, g)), ("raw_launch", raw)):
             res.setdefault(name, []).append(per_call_us(fn, args.calls))
     best = {k: min(v) for k, v in res.items()}
-    print("  host us per call (best of 2): " + "  ".join(f"{k} {v:.2f}" for k, v in best.items())
-          + f"; the operator's dispatch {best['wrapper'] - best['cuda_impl']:.2f} us")
+    print("  host us per call (best of 3): " + "  ".join(f"{k} {v:.2f}" for k, v in best.items())
+          + f"; dispatch: Library {best['wrapper'] - best['cuda_impl']:.2f} us, custom_op "
+          f"{best['custom_op'] - best['cuda_impl']:.2f} us")
     print(chip_smoke.nvidia_smi_line())
     print(json.dumps({"calls": args.calls, "us_per_call": res}))
     return 0

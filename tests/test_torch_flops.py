@@ -15,6 +15,8 @@ import torch.nn.functional as F_nn
 
 from tests._torch_cases import build, chain, port_inputs
 from vargp_tpu_torch.models import vargp as TV
+from vargp_tpu_torch.ops.cuda.build import cost as op_cost
+from vargp_tpu_torch.ops.cuda.rbf_gram import rbf_gram
 from vargp_tpu_torch.ops.cuda.sym_gram import sym_gram, sym_gram_plain
 from vargp_tpu_torch.train import loop as TL
 from vargp_tpu_torch.utils import flops as F
@@ -105,7 +107,8 @@ def test_operator_billed_by_its_cost_and_not_walked():
     z = torch.tensor(rng.standard_normal((3, 20, 7)), dtype=torch.float32)
     invs, g = torch.ones(2, 7), torch.ones(2)
     summary, dots, moves, ops = F.audit(lambda: sym_gram(z, invs, g))
-    flops, nbytes = sym_gram.cost(z.shape, invs.shape, g.shape)
+    flops, nbytes, precision = op_cost("sym_gram", z.shape, invs.shape, g.shape)
+    assert precision == "3xtf32"
     assert ops == {"vargp_torch::sym_gram": dict(flops=flops, bytes=nbytes, calls=1)}
     assert summary["gflop_vargp_torch"] == pytest.approx(flops / 1e9)
     assert not dots and not moves
@@ -113,6 +116,25 @@ def test_operator_billed_by_its_cost_and_not_walked():
         max(flops / F.TF32X3_FLOPS, nbytes / F.HBM_BYTES_PER_S) * 1e3)
     # the plain version alone is walked: its einsum is a product
     assert F.audit(lambda: sym_gram_plain(z, invs, g))[0]["gflop_f32"] > 0
+
+
+@pytest.mark.parametrize("D, peak", [(2, "F32_FLOPS"), (40, "TF32X3_FLOPS")])
+def test_k5_billed_at_the_rate_of_the_kernel_that_runs(D, peak):
+    """K5 up to 16 features runs its small f32 kernel, and is billed at the
+    f32 rate; above, its 3xTF32 tile at 165 TFLOP/s.  Each launch is held
+    to its own bound, and the launches' bounds add."""
+    rng = np.random.default_rng(1)
+    sx, sy = (torch.tensor(rng.standard_normal(s), dtype=torch.float32)
+              for s in ((6, 300, D), (6, 400, D)))
+    g = torch.ones(6)
+    summary, _, _, ops = F.audit(lambda: (rbf_gram(sx, sy, g), rbf_gram(sx, sx, g)))
+    want = 0.0
+    for name, shapes in (("rbf_gram", (sx.shape, sy.shape, g.shape)),
+                         ("rbf_gram_sym", (sx.shape, g.shape))):
+        flops, nbytes, _ = op_cost(name, *shapes)
+        assert ops[f"vargp_torch::{name}"] == dict(flops=flops, bytes=nbytes, calls=1)
+        want += max(flops / getattr(F, peak), nbytes / F.HBM_BYTES_PER_S)
+    assert summary["sol_ms"] == pytest.approx(want * 1e3)
 
 
 def test_audit_of_the_training_step():

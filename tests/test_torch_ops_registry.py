@@ -196,45 +196,64 @@ def _jax_cost(fn, *shapes):
     return found[0]
 
 
-# (operator's cost, its input shapes, the JAX kernel, the JAX call's input
+# (operator, its input shapes, the JAX kernel, the JAX call's input
 # shapes, the ratio port / JAX); S, B and D multiples of 128
 COST_CASES = {
-    "K1 sym_gram": (sym_gram.cost, [(3, 256, 128), (2, 128), (2,)], jrg._sym_gram_4d,
+    "K1 sym_gram": ("sym_gram", [(3, 256, 128), (2, 128), (2,)], jrg._sym_gram_4d,
                     [(3, 256, 128), (2, 128), (2,)], 0.5),
-    "K2 sym_gram_tri": (sym_gram_tri.cost, [(3, 512, 128), (2, 128), (2,)],
+    "K2 sym_gram_tri": ("sym_gram_tri", [(3, 512, 128), (2, 128), (2,)],
                         jrg._sym_gram_4d_tri, [(3, 512, 128), (2, 128), (2,)], 1.0),
-    "K3 diag_chol": (diag_chol.cost, [(5, 128, 128)], jpanel.diag_chol_pallas_t,
+    "K3 diag_chol": ("diag_chol", [(5, 128, 128)], jpanel.diag_chol_pallas_t,
                      [(5, 128, 128)], 1.0),
-    "K4 cross_gram": (cross_gram.cost, [(3, 256, 128), (128, 128), (2, 128), (2,)],
+    "K4 cross_gram": ("cross_gram", [(3, 256, 128), (128, 128), (2, 128), (2,)],
                       jrg._cross_gram_4d, [(3, 256, 128), (128, 128), (2, 128), (2,)], 1.0),
-    "K5 rbf_gram": (rbf_gram.cost, [(4, 256, 128), (4, 128, 128), (4,)], jrg._gram_3d,
+    "K5 rbf_gram": ("rbf_gram", [(4, 256, 128), (4, 128, 128), (4,)], jrg._gram_3d,
                     [(4, 256, 128), (4, 128, 128), (4,)], 1.0),
-    "K5 rbf_gram_sym": (rbf_gram.sym_cost, [(4, 256, 128), (4,)], jrg._gram_3d,
+    "K5 rbf_gram_sym": ("rbf_gram_sym", [(4, 256, 128), (4,)], jrg._gram_3d,
                         [(4, 256, 128), (4, 256, 128), (4,)], 0.5),
-    "K6 chol_inv": (chol_inv.cost, [(3, 256, 256)], jchol_inv._chol_inv_call, [(3, 256, 256)],
+    "K6 chol_inv": ("chol_inv", [(3, 256, 256)], jchol_inv._chol_inv_call, [(3, 256, 256)],
                     1.0),
-    "K7 cholesky": (cholesky.cost, [(3, 256, 256)], jchol.cholesky_pallas, [(3, 256, 256)], 1.0),
-    "K8 diag_chol_chunked": (diag_chol_chunked.cost, [(5, 128, 128)], jpanel.diag_chol_pallas,
+    "K7 cholesky": ("cholesky", [(3, 256, 256)], jchol.cholesky_pallas, [(3, 256, 256)], 1.0),
+    "K8 diag_chol_chunked": ("diag_chol_chunked", [(5, 128, 128)], jpanel.diag_chol_pallas,
                              [(5, 128, 128)], 1.0),
 }
 
 
 @pytest.mark.parametrize("case", list(COST_CASES))
 def test_cost_flops_equal_the_pallas_cost_estimate(case):
-    cost, shapes, jfn, jshapes, ratio = COST_CASES[case]
-    flops, nbytes = cost(*shapes)
-    assert flops == ratio * _jax_cost(jfn, *jshapes)
-    assert nbytes > 0
+    name, shapes, jfn, jshapes, ratio = COST_CASES[case]
+    cost = build.cost(name, *shapes)
+    assert cost.flops == ratio * _jax_cost(jfn, *jshapes)
+    assert cost.bytes > 0
 
 
 def test_costs_bill_the_inputs_and_outputs_once():
     """bytes: each input read once (K3-K8: the lower triangle), each output
     written once, 4 bytes an entry."""
-    assert sym_gram.cost((3, 10, 7), (2, 7), (2,))[1] == 4 * (210 + 14 + 2 + 2 * 3 * 100)
-    assert cross_gram.cost((3, 10, 7), (9, 7), (2, 7), (2,))[1] == 4 * (210 + 63 + 14 + 2 + 540)
-    assert rbf_gram.sym_cost((4, 10, 7), (4,))[1] == 4 * (280 + 4 + 400)
-    assert diag_chol.cost((2, 3, 10, 10))[1] == 4 * 6 * (55 + 100)
-    assert chol_inv.cost((2, 10, 10)) == (2 * 2 * 1000 // 3, 4 * 2 * (55 + 200))
+    assert build.cost("sym_gram", (3, 10, 7), (2, 7), (2,)).bytes == 4 * (
+        210 + 14 + 2 + 2 * 3 * 100)
+    assert build.cost("cross_gram", (3, 10, 7), (9, 7), (2, 7), (2,)).bytes == 4 * (
+        210 + 63 + 14 + 2 + 540)
+    assert build.cost("rbf_gram_sym", (4, 10, 7), (4,)).bytes == 4 * (280 + 4 + 400)
+    assert build.cost("diag_chol", (2, 3, 10, 10)).bytes == 4 * 6 * (55 + 100)
+    assert build.cost("chol_inv", (2, 10, 10))[:2] == (2 * 2 * 1000 // 3, 4 * 2 * (55 + 200))
+
+
+def test_costs_name_the_precision_of_the_kernel_that_runs():
+    """The tensor-core tiles (K1, K2, K4, K5 above 16 features, K6, K7) in
+    3xTF32; K3, K8 and K5's small kernel (up to 16 features) in f32; every
+    class has an H100 peak in ``utils.flops.PEAKS``."""
+    from vargp_tpu_torch.utils.flops import PEAKS
+
+    tile = {name: build.cost(name, *shapes).precision
+            for name, shapes, *_ in COST_CASES.values()}
+    assert tile == {"sym_gram": "3xtf32", "sym_gram_tri": "3xtf32", "diag_chol": "f32",
+                    "cross_gram": "3xtf32", "rbf_gram": "3xtf32", "rbf_gram_sym": "3xtf32",
+                    "chol_inv": "3xtf32", "cholesky": "3xtf32", "diag_chol_chunked": "f32"}
+    for D, want in ((1, "f32"), (2, "f32"), (16, "f32"), (17, "3xtf32"), (784, "3xtf32")):
+        assert build.cost("rbf_gram", (3, 8, D), (3, 5, D), (3,)).precision == want
+        assert build.cost("rbf_gram_sym", (3, 8, D), (3,)).precision == want
+    assert {tile[n] for n in tile} <= set(PEAKS)
 
 
 @pytest.mark.parametrize("shape", [((3, 9, 5), (3, 7, 5)), ((2, 4, 12, 3), (2, 4, 6, 3))])

@@ -76,12 +76,34 @@ def test_parse_trace_own_time_subtracts_nested_host_ops(tmp_path):
 def test_profile_fn_on_the_cpu():
     a, b = torch.randn(64, 64), torch.randn(64, 64)
     out = profile_fn(lambda: torch.relu(a @ b), iters=3, top=5, device="cpu")
-    assert set(out) == {"top", "events_per_call", "launches_per_call", "busy_ms", "log_dir"}
+    assert set(out) == {"top", "events_per_call", "launches_per_call", "busy_ms"}
     assert len(out["top"]) <= 5 and "aten::mm" in out["launches_per_call"]
     assert out["launches_per_call"]["aten::mm"] == 1.0
     assert out["events_per_call"] >= 2 and out["busy_ms"] > 0
     assert all(v >= 0 for v in out["top"].values())
     assert list(out["top"].values()) == sorted(out["top"].values(), reverse=True)
+
+
+def test_device_trace_keeps_the_trace_only_where_asked(tmp_path, monkeypatch):
+    """Without a log_dir the trace goes to a temporary directory that is
+    removed; with one it stays there.  Either way the block's CPU ops come
+    back parsed, by name and as events."""
+    import tempfile
+
+    from vargp_tpu_torch.utils.profiling import device_trace
+
+    scratch = tmp_path / "tmp"
+    scratch.mkdir()
+    monkeypatch.setattr(tempfile, "tempdir", str(scratch))
+    a = torch.randn(32, 32)
+    with device_trace(device="cpu") as tr:
+        a @ a
+    assert "aten::mm" in tr["events"] and any(e["name"] == "aten::mm" for e in tr["trace"])
+    assert list(scratch.iterdir()) == []
+    with device_trace(str(tmp_path / "kept"), device="cpu") as tr:
+        a @ a
+    assert (tmp_path / "kept" / "trace.json").is_file()
+    assert parse_trace(str(tmp_path / "kept"), categories=("cpu_op",), own_time=True) == tr["events"]
 
 
 def test_profile_fn_needs_the_card_unless_asked():

@@ -5,10 +5,10 @@ A module per kernel: ``sym_gram`` (K1), ``sym_gram_tri`` (K2),
 ``rbf_gram`` (K5), ``chol_inv`` (K6) and ``chol`` (K7).  Each kernel is a
 PyTorch operator in the ``vargp_torch`` namespace (``build.kernel_op``):
 it launches its kernel for CUDA tensors, takes its plain PyTorch version
-for CPU tensors, gives shapes alone for fake tensors, and bills its work
-by a cost function (``build.COSTS``, ``<wrapper>.cost``).  The wrapper
-functions raise for any other device; ``<wrapper>.launches`` counts kernel
-launches (``rbf_gram.sym_launches`` those of K5's symmetric kernel).  The
+for CPU tensors, gives shapes alone for fake tensors and refuses any
+other device, and bills its work by a cost function (``build.COSTS``,
+read through ``build.cost``: operations, bytes and precision class).
+``<wrapper>.launches`` counts kernel launches (``rbf_gram.sym_launches`` those of K5's symmetric kernel).  The
 four Grams run one tensor-core tile, ``csrc/rbf_mma.cuh``; the
 factorisations share ``csrc/chol_tile.cuh``.  ``build`` compiles and loads
 the library.

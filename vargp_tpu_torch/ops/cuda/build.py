@@ -10,8 +10,9 @@ source rebuilds and an unchanged one is loaded as it is.
 Each kernel is also a PyTorch operator, ``vargp_torch::<name>``
 (:func:`kernel_op`): a CUDA implementation (the launch), a CPU one (the
 plain version), a fake one (shapes, dtypes and strides, with the real
-one's checks) and a cost function, so that ``torch.export`` keeps a
-launch as one graph node and ``utils.flops`` bills it by its cost.
+one's checks, and the refusal of any device but the CPU and the card)
+and a cost function, so that ``torch.export`` keeps a launch as one graph
+node and ``utils.flops`` bills it by its cost.
 """
 
 import ctypes
@@ -20,13 +21,26 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
 NAMESPACE = "vargp_torch"
-# "vargp_torch::<name>" -> cost(*input shapes) -> (flops, bytes): the
-# unpadded work the kernel does, and the bytes of its inputs read once
-# and its outputs written once
+
+
+class Cost(NamedTuple):
+    """One launch's work: the unpadded operations the kernel does, the
+    bytes of its inputs read once and its outputs written once, and the
+    precision class its operations run in (``utils.flops.PEAKS``:
+    ``3xtf32`` on the tensor cores, ``f32`` on the CUDA cores)."""
+
+    flops: int
+    bytes: int
+    precision: str
+
+
+# "vargp_torch::<name>" -> cost(*input shapes) -> Cost: the one record of
+# each operator's work, read by the FLOP audit and the smoke's bounds
 COSTS = {}
 _LIB = torch.library.Library(NAMESPACE, "DEF")  # the operators' registrations
 
@@ -143,9 +157,10 @@ def library() -> ctypes.CDLL:
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:
-    """True when every tensor lies on the CPU (the wrapper then takes its
-    plain version), False when all lie on one CUDA device (it launches its
-    kernel); anything else raises."""
+    """True when every tensor lies on the CPU, False when all lie on one
+    CUDA device; anything else raises: tensors on several devices, or on a
+    device with no kernel (a real meta tensor among them).  The operators'
+    CUDA and fake implementations call it once a call."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
@@ -170,7 +185,9 @@ def kernel_op(name: str, schema: str, *, cpu, cuda, fake, cost):
     """Register one kernel as the operator ``vargp_torch::<name>`` with
     ``schema`` (its arguments and results): ``cpu`` runs for CPU tensors,
     ``cuda`` (the launch) for CUDA tensors, ``fake`` for fake and meta
-    tensors (shapes only); ``cost`` goes into :data:`COSTS`.  Returns the
+    tensors (shapes only: it calls :func:`on_cpu`, so a real meta tensor,
+    or any device but the CPU and the card, is refused there); ``cost``
+    (input shapes -> :class:`Cost`) goes into :data:`COSTS`.  Returns the
     operator, a callable.  ``torch.library.Library``'s define and impl,
     not ``torch.library.custom_op``, whose Python layers around every call
     cost the host more."""
@@ -180,6 +197,11 @@ def kernel_op(name: str, schema: str, *, cpu, cuda, fake, cost):
     torch.library.register_fake(f"{NAMESPACE}::{name}", fake, lib=_LIB)
     COSTS[f"{NAMESPACE}::{name}"] = cost
     return getattr(getattr(torch.ops, NAMESPACE), name).default
+
+
+def cost(name: str, *shapes) -> Cost:
+    """The operator ``vargp_torch::<name>``'s cost at these input shapes."""
+    return COSTS[f"{NAMESPACE}::{name}"](*shapes)
 
 
 def on_card(t: torch.Tensor) -> bool:

@@ -151,19 +151,23 @@ def _cuda(K):
 
 
 def _fake(K):
+    on_cpu(K)  # refuses a meta tensor
     check_square("cholesky", K)
     return torch.empty_like(K)
 
 
+def cost(K):
+    """K's factor (:func:`chol_cost`) on the tensor cores in 3xTF32."""
+    return chol_cost(K, precision="3xtf32")
+
+
 cholesky_op = kernel_op("cholesky", "(Tensor K) -> Tensor", cpu=_cpu, cuda=_cuda, fake=_fake,
-                        cost=chol_cost)
+                        cost=cost)
 
 
 def cholesky(K: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factor of each (..., S, S) SPD matrix, through K7."""
-    on_cpu(K)  # raises on another device
     return cholesky_op(K)
 
 
 cholesky.launches = 0
-cholesky.cost = chol_cost

@@ -9,8 +9,8 @@ CUDA tensors and takes :func:`cross_gram_plain`, the einsum body of
 
 import torch
 
-from vargp_tpu_torch.ops.cuda.build import (check_f32_contiguous, kernel_op, launch, on_card,
-                                            on_cpu, result_dtype)
+from vargp_tpu_torch.ops.cuda.build import (Cost, check_f32_contiguous, kernel_op, launch,
+                                            on_card, on_cpu, result_dtype)
 
 
 def cross_gram_plain(z: torch.Tensor, x: torch.Tensor, invs2: torch.Tensor,
@@ -42,11 +42,12 @@ def _check(z, x, invs2, gamma2) -> tuple:
     return (H, O, M, B)
 
 
-def cost(z, x, invs2, gamma2):
-    """(flops, bytes): every (i, b) pair's D-long product (2 H O M B D),
-    the inputs read once and the output written once."""
+def cost(z, x, invs2, gamma2) -> Cost:
+    """Every (i, b) pair's D-long product (2 H O M B D) in 3xTF32, the
+    inputs read once and the output written once."""
     (O, M, D), (B, _), (H, _) = z, x, invs2
-    return 2 * H * O * M * B * D, 4 * (O * M * D + B * D + H * D + H + H * O * M * B)
+    return Cost(2 * H * O * M * B * D, 4 * (O * M * D + B * D + H * D + H + H * O * M * B),
+                "3xtf32")
 
 
 def _cpu(z, x, invs2, gamma2):
@@ -67,6 +68,7 @@ def _cuda(z, x, invs2, gamma2):
 
 
 def _fake(z, x, invs2, gamma2):
+    on_cpu(z, x, invs2, gamma2)  # refuses meta tensors and mixed devices
     return z.new_empty(_check(z, x, invs2, gamma2), dtype=result_dtype(z, x, invs2, gamma2))
 
 
@@ -77,9 +79,7 @@ cross_gram_op = kernel_op("cross_gram", "(Tensor z, Tensor x, Tensor invs2, Tens
 def cross_gram(z: torch.Tensor, x: torch.Tensor, invs2: torch.Tensor,
                gamma2: torch.Tensor) -> torch.Tensor:
     """K[h, o, i, b] = gamma2[h] exp(-0.5 sum_d invs2[h, d] (z[o,i,d] - x[b,d])^2)."""
-    on_cpu(z, x, invs2, gamma2)  # raises on another device
     return cross_gram_op(z, x, invs2, gamma2)
 
 
 cross_gram.launches = 0
-cross_gram.cost = cost

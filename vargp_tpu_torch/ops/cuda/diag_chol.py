@@ -21,8 +21,8 @@ import math
 
 import torch
 
-from vargp_tpu_torch.ops.cuda.build import (check_f32_contiguous, kernel_op, launch, on_card,
-                                            on_cpu)
+from vargp_tpu_torch.ops.cuda.build import (Cost, check_f32_contiguous, kernel_op, launch,
+                                            on_card, on_cpu)
 
 BS = 128  # the widest block the kernels factor
 
@@ -79,12 +79,14 @@ def _check_blocks(A: torch.Tensor) -> int:
     return stride
 
 
-def chol_cost(A, n_out: int = 1, n_factor: int = 1):
-    """(flops, bytes) of factoring (..., h, h) blocks: h^3/3 multiply-adds'
-    worth each (``n_factor`` times that for a factor and its inverse), the
-    lower triangle read once and ``n_out`` h x h outputs written."""
+def chol_cost(A, n_out: int = 1, n_factor: int = 1, precision: str = "f32") -> Cost:
+    """Factoring (..., h, h) blocks: h^3/3 multiply-adds' worth each
+    (``n_factor`` times that for a factor and its inverse), the lower
+    triangle read once and ``n_out`` h x h outputs written.  K3 and K8
+    factor in f32 on the CUDA cores; K6 and K7 pass ``3xtf32``, their
+    tensor-core tiles."""
     h, G = A[-1], math.prod(A[:-2])
-    return n_factor * G * h ** 3 // 3, 4 * G * (h * (h + 1) // 2 + n_out * h * h)
+    return Cost(n_factor * G * h ** 3 // 3, 4 * G * (h * (h + 1) // 2 + n_out * h * h), precision)
 
 
 def _cpu(A):
@@ -105,6 +107,7 @@ def _cuda(A):
 
 
 def _fake(A):
+    on_cpu(A)  # refuses a meta tensor
     _check_blocks(A)
     return A.new_empty(A.shape)
 
@@ -118,8 +121,6 @@ def diag_chol(A: torch.Tensor) -> torch.Tensor:
     K3.  ``A`` may be a view: its last stride must be 1 and its batch
     dimensions must flatten to one stride.  Returns a new contiguous
     tensor."""
-    _check_blocks(A)
-    on_cpu(A)  # raises on another device
     return diag_chol_op(A)
 
 
@@ -148,6 +149,7 @@ def _cuda_chunked(A):
 
 
 def _fake_chunked(A):
+    on_cpu(A)  # refuses a meta tensor
     _check_chunked(A)
     return torch.empty_like(A)
 
@@ -159,11 +161,8 @@ diag_chol_chunked_op = kernel_op("diag_chol_chunked", "(Tensor A) -> Tensor", cp
 def diag_chol_chunked(A: torch.Tensor) -> torch.Tensor:
     """The same factor of contiguous (..., 128, 128) blocks through K8,
     which reads only the lower triangle."""
-    on_cpu(A)  # raises on another device
     return diag_chol_chunked_op(A)
 
 
 diag_chol.launches = 0
-diag_chol.cost = chol_cost
 diag_chol_chunked.launches = 0
-diag_chol_chunked.cost = chol_cost

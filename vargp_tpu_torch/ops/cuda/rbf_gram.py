@@ -15,8 +15,8 @@ squared differences.
 
 import torch
 
-from vargp_tpu_torch.ops.cuda.build import (check_f32_contiguous, kernel_op, launch, on_card,
-                                            on_cpu, result_dtype)
+from vargp_tpu_torch.ops.cuda.build import (Cost, check_f32_contiguous, kernel_op, launch,
+                                            on_card, on_cpu, result_dtype)
 
 
 SMALL_D = 16  # the most features the small kernel takes
@@ -71,19 +71,26 @@ def _check(sx, sy, gamma2) -> tuple:
     return (G, M, N)
 
 
-def cost(sx, sy, gamma2):
-    """(flops, bytes) of the cross mode: every (i, j) pair's D-long
-    product (2 G M N D; the small kernel's D differences are billed the
-    same), the inputs read once and the output written once."""
+def precision(D: int) -> str:
+    """The precision class of the kernel that runs at D features: the
+    small kernel's f32 up to SMALL_D, the tile's 3xTF32 above."""
+    return "f32" if D <= SMALL_D else "3xtf32"
+
+
+def cost(sx, sy, gamma2) -> Cost:
+    """The cross mode: every (i, j) pair's D-long product (2 G M N D; the
+    small kernel's D differences are billed the same), the inputs read
+    once and the output written once."""
     (G, M, D), (_, N, _) = sx, sy
-    return 2 * G * M * N * D, 4 * (G * M * D + G * N * D + G + G * M * N)
+    return Cost(2 * G * M * N * D, 4 * (G * M * D + G * N * D + G + G * M * N), precision(D))
 
 
-def sym_cost(sx, gamma2):
-    """(flops, bytes) of the symmetric mode: each mirrored pair once (G M^2
-    D, half the cross mode's), sx read once, the Gram written once."""
+def sym_cost(sx, gamma2) -> Cost:
+    """The symmetric mode: each mirrored pair once (G M^2 D, half the cross
+    mode's; the small kernel, which takes every pair, is billed the same),
+    sx read once, the Gram written once."""
     G, M, D = sx
-    return G * M * M * D, 4 * (G * M * D + G + G * M * M)
+    return Cost(G * M * M * D, 4 * (G * M * D + G + G * M * M), precision(D))
 
 
 def _cpu(sx, sy, gamma2):
@@ -105,6 +112,7 @@ def _cuda(sx, sy, gamma2):
 
 
 def _fake(sx, sy, gamma2):
+    on_cpu(sx, sy, gamma2)  # refuses meta tensors and mixed devices
     return sx.new_empty(_check(sx, sy, gamma2), dtype=result_dtype(sx, sy, gamma2))
 
 
@@ -132,6 +140,7 @@ def _cuda_sym(sx, gamma2):
 
 
 def _fake_sym(sx, gamma2):
+    on_cpu(sx, gamma2)  # refuses meta tensors and mixed devices
     return sx.new_empty(_check(sx, sx, gamma2), dtype=result_dtype(sx, gamma2))
 
 
@@ -153,7 +162,6 @@ def rbf_gram(sx: torch.Tensor, sy: torch.Tensor, gamma2: torch.Tensor) -> torch.
     to SMALL_D features the small kernel serves both (a self-Gram is
     bitwise symmetric there, gamma2 on its diagonal, and counts as a
     symmetric launch)."""
-    on_cpu(sx, sy, gamma2)  # raises on another device
     if same_storage(sx, sy):
         return rbf_gram_sym_op(sx, gamma2)
     return rbf_gram_op(sx, sy, gamma2)
@@ -161,5 +169,3 @@ def rbf_gram(sx: torch.Tensor, sy: torch.Tensor, gamma2: torch.Tensor) -> torch.
 
 rbf_gram.launches = 0  # every launch
 rbf_gram.sym_launches = 0  # the symmetric kernel's
-rbf_gram.cost = cost
-rbf_gram.sym_cost = sym_cost

@@ -12,8 +12,8 @@ tensors.
 
 import torch
 
-from vargp_tpu_torch.ops.cuda.build import (check_f32_contiguous, kernel_op, launch, on_card,
-                                            on_cpu, result_dtype)
+from vargp_tpu_torch.ops.cuda.build import (Cost, check_f32_contiguous, kernel_op, launch,
+                                            on_card, on_cpu, result_dtype)
 
 SCHEMA = "(Tensor z, Tensor invs, Tensor gamma2) -> Tensor"
 
@@ -45,12 +45,12 @@ def check_sym(name: str, z, invs, gamma2) -> tuple:
     return (H, O, M, M)
 
 
-def sym_cost(z, invs, gamma2):
-    """(flops, bytes) of one symmetric Gram: each distinct (i, j) pair's
-    D-long product once (H O M^2 D multiply-adds' worth, the JAX K2's
-    estimate), z, invs and gamma2 read once, the output written once."""
+def sym_cost(z, invs, gamma2) -> Cost:
+    """One symmetric Gram: each distinct (i, j) pair's D-long product once
+    (H O M^2 D multiply-adds' worth, the JAX K2's estimate) in 3xTF32, z,
+    invs and gamma2 read once, the output written once."""
     (O, M, D), (H, _) = z, invs
-    return H * O * M * M * D, 4 * (O * M * D + H * D + H + H * O * M * M)
+    return Cost(H * O * M * M * D, 4 * (O * M * D + H * D + H + H * O * M * M), "3xtf32")
 
 
 def _cpu(z, invs, gamma2):
@@ -73,6 +73,7 @@ def _cuda(z, invs, gamma2):
 
 
 def _fake(z, invs, gamma2):
+    on_cpu(z, invs, gamma2)  # refuses meta tensors and mixed devices
     return z.new_empty(check_sym("sym_gram", z, invs, gamma2), dtype=result_dtype(z, invs, gamma2))
 
 
@@ -82,9 +83,7 @@ sym_gram_op = kernel_op("sym_gram", SCHEMA, cpu=_cpu, cuda=_cuda, fake=_fake, co
 def sym_gram(z: torch.Tensor, invs: torch.Tensor,
              gamma2: torch.Tensor) -> torch.Tensor:
     """K[h, o, i, j] = gamma2[h] exp(-0.5 sum_d invs[h, d]^2 (z[o,i,d] - z[o,j,d])^2)."""
-    on_cpu(z, invs, gamma2)  # raises on another device
     return sym_gram_op(z, invs, gamma2)
 
 
 sym_gram.launches = 0
-sym_gram.cost = sym_cost

@@ -36,6 +36,7 @@ def _cuda(z, invs, gamma2):
 
 
 def _fake(z, invs, gamma2):
+    on_cpu(z, invs, gamma2)  # refuses meta tensors and mixed devices
     return z.new_empty(check_sym("sym_gram_tri", z, invs, gamma2),
                        dtype=result_dtype(z, invs, gamma2))
 
@@ -47,9 +48,7 @@ sym_gram_tri_op = kernel_op("sym_gram_tri", SCHEMA, cpu=_cpu, cuda=_cuda, fake=_
 def sym_gram_tri(z: torch.Tensor, invs: torch.Tensor,
                  gamma2: torch.Tensor) -> torch.Tensor:
     """K[h, o, i, j] = gamma2[h] exp(-0.5 sum_d invs[h, d]^2 (z[o,i,d] - z[o,j,d])^2)."""
-    on_cpu(z, invs, gamma2)  # raises on another device
     return sym_gram_tri_op(z, invs, gamma2)
 
 
 sym_gram_tri.launches = 0
-sym_gram_tri.cost = sym_cost

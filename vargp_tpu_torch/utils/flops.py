@@ -18,12 +18,15 @@ ATen op that reaches the dispatcher, the backward's too:
 
 Elementwise ops and reductions are not billed, as in the JAX version.  The
 speed of light (``sol_ms``) divides each bucket by its peak rate on an
-NVIDIA H100 SXM at 700 W (NVIDIA's data sheet): 67 TFLOP/s float32 on the
-CUDA cores; 495 TFLOP/s TF32 on the tensor cores, 165 effective for the
-kernels' 3xTF32 products (three TF32 products for one f32 product: the
-Grams, K6 and K7); HBM3 at 3.35 TB/s for the bytes moved and each
-operator's bytes.  A bucket's time is the larger of its operations over
-their rate and its bytes over the memory rate; the buckets add.
+NVIDIA H100 SXM at 700 W (NVIDIA's data sheet), ``PEAKS`` by precision
+class: 67 TFLOP/s float32 on the CUDA cores; 495 TFLOP/s TF32 on the
+tensor cores, 165 effective for the kernels' 3xTF32 products (three TF32
+products for one f32 product); HBM3 at 3.35 TB/s for the bytes moved and
+each operator's bytes.  An operator's cost names its own precision class
+for the shapes it is given (K5's small f32 kernel up to 16 features, its
+3xTF32 tile above).  A bucket's time is the larger of its operations over
+their rate and its bytes over the memory rate (for an operator, per
+launch); the buckets add.
 """
 
 import collections
@@ -37,15 +40,9 @@ F32_FLOPS = 67e12
 TF32_FLOPS = 495e12
 TF32X3_FLOPS = TF32_FLOPS / 3
 HBM_BYTES_PER_S = 3.35e12
-# each operator's arithmetic: the Grams, K6 and K7 multiply in 3xTF32 on
-# the tensor cores; K3 and K8 factor in f32 on the CUDA cores
-OP_FLOPS = {
-    "vargp_torch::sym_gram": TF32X3_FLOPS, "vargp_torch::sym_gram_tri": TF32X3_FLOPS,
-    "vargp_torch::cross_gram": TF32X3_FLOPS, "vargp_torch::rbf_gram": TF32X3_FLOPS,
-    "vargp_torch::rbf_gram_sym": TF32X3_FLOPS, "vargp_torch::cholesky": TF32X3_FLOPS,
-    "vargp_torch::chol_inv": TF32X3_FLOPS, "vargp_torch::diag_chol": F32_FLOPS,
-    "vargp_torch::diag_chol_chunked": F32_FLOPS,
-}
+# peak operations per second by precision class: the products' (``f32``,
+# ``tf32``) and the operators' costs' (``f32``, ``3xtf32``)
+PEAKS = {"f32": F32_FLOPS, "tf32": TF32_FLOPS, "3xtf32": TF32X3_FLOPS}
 OPERATOR_BUCKET = "vargp_torch"
 
 PRODUCTS = {"aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm", "aten::mv", "aten::dot",
@@ -81,6 +78,14 @@ def _product_flops(name: str, args) -> int:
     return 2 * batch * a.shape[-2] * a.shape[-1] * b.shape[-1]
 
 
+def bound_s(flops: float, nbytes: float, precision: str) -> tuple[float, str]:
+    """The least time for this work on the H100, in seconds, and what sets
+    it: the larger of ``flops`` at ``precision``'s peak (``operations``) and
+    ``nbytes`` at the memory rate (``bytes``)."""
+    t_ops, t_bytes = flops / PEAKS[precision], nbytes / HBM_BYTES_PER_S
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def _bytes(out) -> int:
     outs = out if isinstance(out, (tuple, list)) else (out,)
     return sum(t.numel() * t.element_size() for t in outs if isinstance(t, torch.Tensor))
@@ -95,17 +100,19 @@ class _Audit(TorchDispatchMode):
         self.dots = collections.Counter()  # ((name, shapes), class) -> flops
         self.moves = collections.Counter()  # op name -> bytes
         self.ops = {}  # operator name -> {flops, bytes, calls}
+        self.op_sol_s = 0.0  # the operators' launches, each at its bound
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
         name = func.name()
         if name in self.costs:
             shapes = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
-            flops, nbytes = self.costs[name](*shapes)
+            cost = self.costs[name](*shapes)
             op = self.ops.setdefault(name, dict(flops=0, bytes=0, calls=0))
-            op["flops"] += flops
-            op["bytes"] += nbytes
+            op["flops"] += cost.flops
+            op["bytes"] += cost.bytes
             op["calls"] += 1
+            self.op_sol_s += bound_s(*cost)[0]
         elif name in PRODUCTS:
             tensors = [a for a in args if isinstance(a, torch.Tensor)]
             shapes = tuple(tuple(t.shape) for t in tensors)
@@ -129,10 +136,8 @@ def audit(fn, *args):
     for (_, cls), fl in mode.dots.items():
         by_class[cls] += fl
     mv = sum(mode.moves.values())
-    rates = {"f32": F32_FLOPS, "tf32": TF32_FLOPS}
-    sol = sum(fl / rates.get(cls, F32_FLOPS) for cls, fl in by_class.items()) + mv / HBM_BYTES_PER_S
-    for name, op in mode.ops.items():
-        sol += max(op["flops"] / OP_FLOPS[name], op["bytes"] / HBM_BYTES_PER_S)
+    sol = (sum(fl / PEAKS.get(cls, F32_FLOPS) for cls, fl in by_class.items())
+           + mv / HBM_BYTES_PER_S + mode.op_sol_s)
     summary = {f"gflop_{cls}": fl / 1e9 for cls, fl in sorted(by_class.items())}
     summary.setdefault("gflop_f32", 0.0)
     summary[f"gflop_{OPERATOR_BUCKET}"] = sum(op["flops"] for op in mode.ops.values()) / 1e9

@@ -35,29 +35,34 @@ TRACE_NAME = "trace.json"
 def device_trace(log_dir: str | None = None, *, device=None):
     """Profile the block on ``device`` (None means the card): CPU and CUDA
     activities on the card, CPU alone on the CPU.  The card is
-    synchronised before the trace stops; the chrome trace goes to
-    ``<log_dir>/trace.json`` (a new temporary directory by default).
-    Yields a dict that holds ``log_dir`` and, after the block, ``events``
-    (``parse_trace``'s result on the card, the CPU ops' own times on the
-    CPU) and ``profile`` (the ``torch.profiler.profile``)."""
+    synchronised before the trace stops, and the chrome trace is read once.
+    Yields a dict that holds, after the block, ``events`` (``parse_trace``'s
+    ms per name: the device's events on the card, the CPU ops by their own
+    time on the CPU), ``trace`` (those events themselves, chrome-trace
+    dicts) and ``profile`` (the ``torch.profiler.profile``).  The
+    trace is kept as ``<log_dir>/trace.json`` only when ``log_dir`` is
+    given; otherwise it is written to a temporary directory that is
+    removed."""
     from torch.profiler import ProfilerActivity, profile
 
     dev = resolve_device(device)
     activities = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    log_dir = log_dir or tempfile.mkdtemp(prefix="vargp_torch_trace_")
-    os.makedirs(log_dir, exist_ok=True)
-    holder = {"log_dir": log_dir}
+    holder = {}
     with profile(activities=activities) as prof:
         yield holder
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-    path = os.path.join(log_dir, TRACE_NAME)
-    prof.export_chrome_trace(path)
+    cats = DEVICE_CATEGORIES if dev.type == "cuda" else ("cpu_op",)
+    with tempfile.TemporaryDirectory(prefix="vargp_torch_trace_") as tmp:
+        if log_dir:
+            os.makedirs(log_dir, exist_ok=True)
+        path = os.path.join(log_dir or tmp, TRACE_NAME)
+        prof.export_chrome_trace(path)
+        holder["trace"] = _select(_load(path), cats)
+    holder["events"] = _ms(holder["trace"], own_time=dev.type != "cuda")
     holder["profile"] = prof
-    holder["events"] = (parse_trace(path) if dev.type == "cuda"
-                        else parse_trace(path, categories=("cpu_op",), own_time=True))
 
 
 def _trace_file(path: str) -> str | None:
@@ -96,6 +101,24 @@ def _own_times(events: list) -> collections.Counter:
     return own
 
 
+def _select(events: list, categories) -> list:
+    """The complete events ("X") whose category is in ``categories``."""
+    return [e for e in events
+            if e.get("ph") == "X" and "dur" in e and e.get("cat") in categories]
+
+
+def _ms(events: list, own_time: bool = False) -> dict:
+    """ms per event name; with ``own_time`` each less the events nested in
+    it."""
+    if own_time:
+        dur = _own_times(events)
+    else:
+        dur = collections.Counter()
+        for e in events:
+            dur[e["name"]] += e["dur"]
+    return {k: v / 1000.0 for k, v in dur.items()}
+
+
 def parse_trace(path: str, categories=DEVICE_CATEGORIES, own_time: bool = False,
                 counts: bool = False):
     """Device ms per op name in a ``torch.profiler`` chrome trace: ``path``
@@ -108,15 +131,8 @@ def parse_trace(path: str, categories=DEVICE_CATEGORIES, own_time: bool = False,
     f = _trace_file(path)
     if f is None:
         return ({}, {}) if counts else {}
-    events = [e for e in _load(f)
-              if e.get("ph") == "X" and "dur" in e and e.get("cat") in categories]
-    if own_time:
-        dur = _own_times(events)
-    else:
-        dur = collections.Counter()
-        for e in events:
-            dur[e["name"]] += e["dur"]
-    ms = {k: v / 1000.0 for k, v in dur.items()}
+    events = _select(_load(f), categories)
+    ms = _ms(events, own_time)
     if counts:
         return ms, dict(collections.Counter(e["name"] for e in events))
     return ms
@@ -128,8 +144,8 @@ def profile_fn(fn, *args, iters: int = 10, top: int = 15, device=None) -> dict:
     call (device kernels, copies and fills on the card; CPU ops by their
     own time on the CPU); ``events_per_call``, the kernel events traced per
     call on the card (the CPU ops' events on the CPU), and
-    ``launches_per_call`` the same per op name; ``busy_ms``, the summed ms
-    per call; ``log_dir``, where the trace is."""
+    ``launches_per_call`` the events per call of each op name;
+    ``busy_ms``, the summed ms per call."""
     dev = resolve_device(device)
     fn(*args)
     if dev.type == "cuda":
@@ -137,15 +153,13 @@ def profile_fn(fn, *args, iters: int = 10, top: int = 15, device=None) -> dict:
     with device_trace(device=dev) as tr:
         for _ in range(iters):
             fn(*args)
-    path = os.path.join(tr["log_dir"], TRACE_NAME)
-    cats = DEVICE_CATEGORIES if dev.type == "cuda" else ("cpu_op",)
-    ms, n = parse_trace(path, categories=cats, own_time=dev.type != "cuda", counts=True)
-    kernels = parse_trace(path, categories=cats[:1], counts=True)[1]
+    ms = tr["events"]
+    n = collections.Counter(e["name"] for e in tr["trace"])
+    kernels = sum(e["cat"] == "kernel" for e in tr["trace"]) if dev.type == "cuda" else n.total()
     ranked = sorted(ms.items(), key=lambda kv: -kv[1])[:top]
     return {
         "top": {k: v / iters for k, v in ranked},
-        "events_per_call": sum(kernels.values()) / iters,
+        "events_per_call": kernels / iters,
         "launches_per_call": {k: v / iters for k, v in n.items()},
         "busy_ms": sum(ms.values()) / iters,
-        "log_dir": tr["log_dir"],
     }
