@@ -8,8 +8,8 @@ Phases, each of which raises (and the script exits non-zero, printing no
 result) on a failure:
 
 1. the card: ``torch.cuda.is_available()``, its name and power limit;
-2. the build: every kernel of the paths compiled from ``vargp_tpu_torch/csrc``
-   with one ``nvcc`` call;
+2. the build: every kernel of the paths compiled from ``vargp_tpu_torch/csrc``,
+   one ``nvcc`` per source, all started together, and one link;
 3. each kernel (K1 sym-Gram, K2 triangle-skip sym-Gram, K3 diagonal-block
    Cholesky, K4 cross-Gram, K5 generic Gram on pre-scaled inputs, K6 fused
    Cholesky and triangular inverse, K7 batched Cholesky, K8 chunked
@@ -154,7 +154,24 @@ result) on a failure:
    ``achieved`` against the step's device-busy time and its CUDA-event
    time, the card's name and power limit beside them.  The bounds of
    phase 11 come from the same cost functions and peaks (``build.cost``:
-   operations, bytes and precision class; ``utils.flops.bound_s``).
+   operations, bytes and precision class; ``utils.flops.bound_s``);
+15. multi-GPU (``vargp_tpu_torch.parallel``, SHARDED): the kernels built
+   once here, then ranks spawned on card 0 over gloo (the machine has one
+   card; NCCL refuses two ranks on one device), two for the 1 x 2 and
+   2 x 1 ("data" x "model") meshes and four for 2 x 2: on each, A's step
+   and a 5-step train block held to the single-device step and block on
+   the same draws (loss and pieces 1e-5 relative, every leaf after
+   ``unshard_to_host`` 1e-4 relative and a thousandth of a step per step
+   absolute, 3e-6 and 1.5e-5, Yogi's moments 1e-4 of each leaf's largest
+   magnitude), each rank's launches counted
+   (K1 1, K3 3, K4 1 a step) at its shard's shapes, its ms per step by
+   CUDA events and its time in collectives from a profile, labelled as
+   ranks sharing one card; then ``split_mnist``'s first two tasks
+   (PROTOCOL) on the 1 x 2 mesh through the driver, each task's
+   accuracies within 0.02 of phase 8's, rank 0's checkpoints reloaded
+   into the single-device template.  A rank that fails or outlives its
+   timeout fails the script.  ``python3 chip_smoke.py --phases=sharded``
+   runs phases 8 and 15 alone and prints no result line.
 
 The line before the last two is one JSON object ``{"kernels": [...]}``; then
 the card's ``nvidia-smi`` name and power limit; the last line is
@@ -176,6 +193,7 @@ import time
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 SEED = 0
 FLAGSHIP = dict(n_tasks=5, M=60, O=10, D=784, B=512, H=3, n_f=10)
@@ -1317,7 +1335,8 @@ def check_protocol(dev, smi):
     wall = time.perf_counter() - t_phase
     print(f"  protocol phase wall time {wall:.3f} s; {smi}")
     return dict(launches=launches, steps=rec["steps"], steps_per_sec=sps,
-                split_ms=float(np.mean(rec["split_ms"])), wall_s=wall, acc=acc)
+                split_ms=float(np.mean(rec["split_ms"])), wall_s=wall, acc=acc,
+                summaries=summaries)
 
 
 def check_outputs(where, pieces, probs, shape=FLAGSHIP):
@@ -2791,6 +2810,290 @@ def check_audit(dev, smi, profiles) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# multi-GPU: the ("data", "model") mesh on ranks that share the one card
+# ---------------------------------------------------------------------------
+
+# A's step and a short train block on meshes of ranks spawned here, every
+# rank on card 0 (the machine has one; NCCL refuses two ranks on one
+# device, so the ranks talk over gloo), held to the single-device step on
+# the same draws: the loss and pieces within tol_loss relative, Yogi's
+# moments within moments_of_largest of each leaf's largest magnitude
+# (tests/test_torch_parallel.py's limits), every leaf within rtol and a
+# thousandth of a step of lr 3e-3 per step taken (atol after the step,
+# block_atol after the block).  Yogi's update, lr m / (sqrt(v) + eps),
+# turns the gradients' f32 noise (the sharded sums add in another order)
+# into parameter noise where a gradient is near 0: on the card one step
+# at 2 x 1 moved a leaf 1.84e-6 off, and 5 steps at 1 x 2 5.1e-6, beyond
+# the 1e-6 that the CPU tests' tiny case holds.  Each
+# rank's launches per step are counted at its shard's shapes (K1 on its
+# O / mp classes, K3 3x, K4 on its B / dp rows).  Then split_mnist's first
+# two tasks (PROTOCOL) on the 1 x 2 mesh, each task's accuracies within
+# protocol_tol of check_protocol's single-device run.  The times are of
+# ranks that share one card: no number here is a scale-out speed.
+SHARDED = dict(spawns={2: [("1 x 2", 2), ("2 x 1", 1)], 4: [("2 x 2", 2)]},
+               block_steps=5, timed_steps=10, profiled_steps=3, rank_timeout=480,
+               tol_loss=1e-5, rtol=1e-4, atol=3e-6, block_atol=1.5e-5, moments_of_largest=1e-4,
+               protocol_tol=0.02,
+               launches={"sym_gram": 1, "diag_chol": 3, "cross_gram": 1})
+
+
+class _KernelShapes(TorchDispatchMode):
+    """Each ``vargp_torch::`` operator call's tensor shapes, in order."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func._schema.name.startswith("vargp_torch::"):
+            self.calls.append((func._schema.name.split("::")[1],
+                               [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]))
+        return func(*args, **(kwargs or {}))
+
+
+def _sharded_step_run(label, model_parallel, dev):
+    """On this rank: A's step on the mesh (launches, shapes, collectives),
+    its time by CUDA events, the collectives' share from a CPU profile,
+    and a block of SHARDED["block_steps"] steps."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from vargp_tpu_torch import parallel
+    from vargp_tpu_torch.train import loop as TL
+
+    sh = SHARDED
+    n = dist.get_world_size()
+    mesh = parallel.make_mesh(n, model_parallel, devices=[dev] * n)
+    t = train_inputs("A", dev)
+    cfg, O = t["cfg"], t["cfg"].out_size
+    p = parallel.shard_params(t["params"], mesh, O)
+    prev = parallel.shard_params(t["prev"], mesh, O)
+    x, y, w = parallel.shard_batch(t["x"], t["y"], t["w"], mesh)
+    update = parallel.make_sharded_update_fn(cfg, t["opt"], t["beta"], t["n_train"], mesh)
+
+    def one():
+        return update(p, t["opt"].init(p), prev, t["prior"], x, y, w, t["noise"],
+                      chain_mask=t["mask"])
+
+    reset_counts()
+    mesh.log.clear()
+    with _KernelShapes() as shapes:
+        p1, s1, loss, pieces = one()
+    torch.cuda.synchronize()
+    out = dict(label=label, rank=mesh.rank, coords=mesh.coords, shape=mesh.shape,
+               backend=dist.get_backend(), launches=read_counts(), calls=shapes.calls,
+               collectives=list(mesh.log), loss=float(loss), pieces=[float(v) for v in pieces],
+               params=parallel.unshard_to_host(p1, mesh, O),
+               opt=parallel.unshard_to_host(s1, mesh, O))
+    for _ in range(2):
+        one()
+    torch.cuda.synchronize()
+    dist.barrier()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(sh["timed_steps"]):
+        one()
+    end.record()
+    torch.cuda.synchronize()
+    out["host_ms"] = (time.perf_counter() - t0) * 1e3 / sh["timed_steps"]
+    out["ms"] = start.elapsed_time(end) / sh["timed_steps"]
+    dist.barrier()
+    with profile(activities=[ProfilerActivity.CPU], acc_events=True) as prof:
+        t0 = time.perf_counter()
+        for _ in range(sh["profiled_steps"]):
+            one()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    coll = [e for e in prof.key_averages() if e.key.startswith(("gloo:", "nccl:"))]
+    out["collective_ms"] = sum(e.cpu_time_total for e in coll) / 1e3 / sh["profiled_steps"]
+    out["collective_calls"] = sum(e.count for e in coll) / sh["profiled_steps"]
+    out["profiled_ms"] = wall * 1e3 / sh["profiled_steps"]
+
+    dx, dy, dw = t["data"]
+    B = t["x"].shape[0]
+    draws = itertools.islice(TL.block_draws(torch.Generator(device=dev).manual_seed(SEED + 21),
+                                            dx.shape[0], B, 1, cfg, len(prev)),
+                             sh["block_steps"])
+    run = parallel.make_sharded_device_train_fn(cfg, t["opt"], t["beta"], B, 1, mesh)
+    pb, _, losses, bpieces = run(p, t["opt"].init(p), prev, t["prior"], t["mask"], t["n_train"],
+                                 dx, dy, dw, None, draws=draws)
+    out["block"] = dict(losses=losses.cpu(), pieces=bpieces.cpu(),
+                        params=parallel.unshard_to_host(pb, mesh, O))
+    return out
+
+
+def sharded_rank(meshes, protocol_dir, dev):
+    """A spawned rank's share of the sharded phases on ``dev``: each
+    mesh's step, then (with ``protocol_dir``) split_mnist's first two
+    tasks over the job's ranks, rank 0 writing its run to
+    ``protocol_dir``."""
+    import vargp_tpu_torch  # noqa: F401  (sets the TF32 flags)
+
+    import torch.distributed as dist
+
+    out = {"steps": [_sharded_step_run(label, mp, dev) for label, mp in meshes]}
+    # whether this backend gathers tensors on the card (the port's gather
+    # is an all_reduce of a zero-padded buffer on every backend)
+    try:
+        got = torch.empty(dist.get_world_size(), device=dev)
+        dist.all_gather_into_tensor(got, torch.full((1,), float(dist.get_rank()), device=dev))
+        out["all_gather"] = f"works: {got.tolist()}"
+    except Exception as exc:  # a probe: its answer is printed, nothing depends on it
+        out["all_gather"] = f"raises {type(exc).__name__}: {exc}"[:300]
+    if protocol_dir is not None:
+
+        from vargp_tpu_torch.experiments import vargp_run
+
+        pr = PROTOCOL
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, summaries = vargp_run.split_mnist(
+            n_tasks=pr["n_tasks"], pad_tasks_to=pr["pad_tasks_to"], epochs=pr["epochs"],
+            eval_interval=pr["eval_interval"], seed=pr["seed"], log_dir=protocol_dir,
+            n_devices=dist.get_world_size(), model_parallel=2, device=dev.type)
+        torch.cuda.synchronize()
+        out["protocol"] = dict(summaries=summaries, wall_s=time.perf_counter() - t0,
+                               launches=read_counts())
+    return out
+
+
+def _excess(got, want, rtol, atol, of_largest=None) -> float:
+    """The largest (|got - want| - rtol |want|) / atol over the leaves of
+    two trees, atol taken as ``of_largest`` of each leaf's largest
+    magnitude when given: at most 1 passes."""
+    from vargp_tpu_torch.train.optim import tree_leaves
+
+    got, want = tree_leaves(got), [np.asarray(v.cpu() if hasattr(v, "cpu") else v)
+                                   for v in tree_leaves(want)]
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} leaves against {len(want)}")
+    worst = 0.0
+    for a, b in zip(got, want):
+        a, b = np.asarray(a, dtype=np.float64), b.astype(np.float64)
+        tol = of_largest * float(np.abs(b).max()) if of_largest is not None else atol
+        worst = max(worst, float(np.max(np.abs(a - b) - rtol * np.abs(b))) / max(tol, 1e-30))
+    return worst
+
+
+def check_sharded(dev, smi, protocol) -> dict:
+    """The sharded phases (SHARDED): one spawn of 2 ranks (the 1 x 2 and
+    2 x 1 meshes, then the protocol on 1 x 2) and one of 4 (2 x 2), every
+    rank on card 0 over gloo; each rank's step against the single-device
+    step and block on the same draws, its launches and shapes; the
+    protocol's accuracies against ``protocol``'s and its checkpoints
+    reloaded.  Returns each mesh's launches per rank and step."""
+    from vargp_tpu_torch import parallel
+    from vargp_tpu_torch.experiments import analysis as A
+    from vargp_tpu_torch.models import vargp as V
+    from vargp_tpu_torch.train import loop as TL
+    from vargp_tpu_torch.train.optim import tree_leaves
+    from vargp_tpu_torch.utils.checkpoint import load_chain
+
+    sh = SHARDED
+    t_phase = time.perf_counter()
+    t = train_inputs("A", dev)
+    p_ref, s_ref, loss_ref, pieces_ref = step(t)
+    dx, dy, dw = t["data"]
+    B = t["x"].shape[0]
+    draws = itertools.islice(TL.block_draws(torch.Generator(device=dev).manual_seed(SEED + 21),
+                                            dx.shape[0], B, 1, t["cfg"], len(t["prev"])),
+                             sh["block_steps"])
+    pb_ref, _, losses_ref, _ = TL.train_block(
+        t["params"], t["opt"].init(t["params"]), t["prev"], t["prior"], t["mask"], t["n_train"],
+        dx, dy, dw, None, cfg=t["cfg"], opt=t["opt"], beta=t["beta"], batch_size=B, n_epochs=1,
+        device=dev, draws=draws)
+    loss_ref = float(loss_ref)
+    losses_ref = losses_ref.cpu()
+    O = t["cfg"].out_size
+    print(f"  single-device reference at A on the card: loss {loss_ref!r}, block losses "
+          f"{losses_ref.tolist()}")
+
+    results, launches = {}, {}
+    rank_dev = torch.device(dev.type, 0) if dev.type == "cuda" else dev  # every rank on card 0
+    with tempfile.TemporaryDirectory() as d:
+        proto_dir = os.path.join(d, "protocol")
+        for n, meshes in sh["spawns"].items():
+            t0 = time.perf_counter()
+            ranks = parallel.spawn_ranks(sharded_rank, [rank_dev] * n,
+                                         (meshes, proto_dir if n == 2 else None, rank_dev),
+                                         timeout=sh["rank_timeout"], store_dir=d)
+            print(f"  {n} ranks on {rank_dev}: {time.perf_counter() - t0:.3f} s, spawn to join; "
+                  f"{ranks[0]['steps'][0]['backend']} all_gather_into_tensor on the device "
+                  f"{ranks[0]['all_gather']}")
+            results[n] = ranks
+        cfg = V.VARGPConfig(M=FLAGSHIP["M"], out_size=FLAGSHIP["O"], in_size=FLAGSHIP["D"])
+        loaded = load_chain(proto_dir, PROTOCOL["n_tasks"], A.params_template(cfg))
+
+    for n, ranks in results.items():
+        for k, (label, mp) in enumerate(sh["spawns"][n]):
+            dp = n // mp
+            per_rank = {}
+            for r in ranks:
+                st = r["steps"][k]
+                want = {c: 0 for c in counters()}
+                want.update(sh["launches"])
+                if st["launches"] != want:
+                    raise AssertionError(f"{label} rank {st['rank']}: launches {st['launches']}, "
+                                         f"expected {want}")
+                H = t["cfg"].n_var_samples
+                for name, shapes in st["calls"]:
+                    # the Grams' z (O / mp, S, D) and K4's x (B / dp, D); the
+                    # factor's batch of H x O / mp blocks
+                    local = (shapes[0][0] == O // mp if name in ("sym_gram", "cross_gram")
+                             else math.prod(shapes[0][:-2]) == H * O // mp)
+                    if not local or (name == "cross_gram" and shapes[1][0] != B // dp):
+                        raise AssertionError(f"{label} rank {st['rank']}: {name} at {shapes}, "
+                                             f"not on the shard ({O // mp} classes, {B // dp} rows)")
+                rel = abs(st["loss"] - loss_ref) / abs(loss_ref)
+                prel = max(abs(a - float(b)) / max(abs(float(b)), 1e-30)
+                           for a, b in zip(st["pieces"], pieces_ref))
+                e_p = _excess(st["params"], p_ref, sh["rtol"], sh["atol"])
+                e_o = _excess(st["opt"], s_ref, 0, 0, sh["moments_of_largest"])
+                b = st["block"]
+                brel = float(torch.max(torch.abs(b["losses"] - losses_ref) / torch.abs(losses_ref)))
+                e_b = _excess(b["params"], pb_ref, sh["rtol"], sh["block_atol"])
+                shapes = sorted({(name, tuple(s[0])) for name, s in st["calls"]})
+                print(f"  {label} rank {st['rank']} at {st['coords']} ({st['backend']}): loss "
+                      f"{st['loss']!r} (rel {rel:.3e}), pieces rel {prel:.3e}; params at "
+                      f"{e_p:.3f} of their limit, moments {e_o:.3f}; block of "
+                      f"{b['losses'].numel()} steps: losses rel {brel:.3e}, params {e_b:.3f} of "
+                      f"their limit; launches {st['launches']}; operator inputs {shapes}; "
+                      f"collectives per step {len(st['collectives'])}: "
+                      f"{[(c[0], c[2]) for c in st['collectives']]}")
+                print(f"  {label} rank {st['rank']}: ms per sharded step by CUDA events "
+                      f"{st['ms']:.4f} (host clock {st['host_ms']:.4f}); profiled "
+                      f"{st['profiled_ms']:.4f} ms a step, of it in collectives "
+                      f"{st['collective_ms']:.4f} ms ({st['collective_calls']:.0f} calls, "
+                      f"{st['collective_ms'] / st['profiled_ms']:.1%}); ranks sharing one card "
+                      f"over gloo, not a scale-out speed; {smi}")
+                if not (rel <= sh["tol_loss"] and prel <= sh["tol_loss"] and brel <= sh["tol_loss"]
+                        and max(e_p, e_o, e_b) <= 1.0):
+                    raise AssertionError(f"{label} rank {st['rank']}: the sharded step or block "
+                                         "differs from the single-device one beyond its limits")
+                per_rank[st["rank"]] = st["launches"]
+            launches[label] = per_rank
+
+    pr = results[2][0]["protocol"]
+    print(f"  split_mnist's first {PROTOCOL['n_tasks']} tasks on the 1 x 2 mesh (2 ranks on card "
+          f"0, gloo): {pr['wall_s']:.3f} s, rank 0's launches {pr['launches']}; single device "
+          f"{protocol['wall_s']:.3f} s (the whole phase); {smi}")
+    for tk, (a, b) in enumerate(zip(protocol["summaries"], pr["summaries"])):
+        diff = {k: abs(a[k] - b[k]) for k in a}
+        print(f"  task {tk}: single device {a}, sharded {b}")
+        if set(a) != set(b) or not all(v < sh["protocol_tol"] for v in diff.values()):
+            raise AssertionError(f"sharded protocol task {tk}: {b} against {a}")
+    for tk, p in enumerate(loaded):
+        if not all(np.isfinite(v).all() for v in tree_leaves(p)):
+            raise AssertionError(f"sharded protocol: checkpoint {tk} not finite")
+    print(f"  rank 0's {len(loaded)} checkpoints reloaded into the single-device template; "
+          f"the sharded phases {time.perf_counter() - t_phase:.3f} s")
+    return dict(launches=launches, protocol_launches=pr["launches"])
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2806,9 +3109,15 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build.library()
-    print(f"build: {time.perf_counter() - t0:.3f} s for {len(build.sources())} sources, one nvcc call")
+    print(f"build: {time.perf_counter() - t0:.3f} s for {len(build.sources())} sources, one nvcc "
+          "each in parallel, one link")
 
     dev = torch.device("cuda")
+    if sys.argv[1:] == ["--phases=sharded"]:  # the multi-GPU phases alone, no result line
+        protocol = check_protocol(dev, smi)
+        check_sharded(dev, smi, protocol)
+        print(f"total: {time.perf_counter() - t_start:.1f} s")
+        return 0
     print("kernels against their plain versions on the card:")
     errs, f64 = check_kernels(dev)
     errs["diag_chol"], flag_k3 = check_k3(dev)
@@ -2892,6 +3201,9 @@ def main() -> int:
     profiles = check_profiles(dev, smi)
     print("the FLOP audit of one training step at A and B:")
     check_audit(dev, smi, profiles)
+    print("multi-GPU: A's step and a train block on 1 x 2, 2 x 1 and 2 x 2 meshes of ranks that "
+          "share card 0 (gloo), against the single-device step; the protocol on 1 x 2:")
+    sharded = check_sharded(dev, smi, protocol)
 
     print("timings (ms per call):")
     spd = flag_k3["(30, 128, 128)"]
@@ -3003,12 +3315,16 @@ def main() -> int:
             "name": n, "route": e["route"], "source": e["source"], "replaces": e["replaces"],
             # launches: the counted train steps of the kernel's paths (A, B,
             # C on its route; the global SVGP's two; Retrain's task 0 and 1
-            # and a regression step) and the exported predictor's call
-            # under each route
+            # and a regression step), the exported predictor's call
+            # under each route and every rank's sharded step at A
             "launches": sum(per_step.values()) + sum(global_step_launches.values())
             + sum(retrain_step_launches.values()) + regression_per_step[n]
-            + sum(v["launches"][n] for v in exported.values()),
+            + sum(v["launches"][n] for v in exported.values())
+            + sum(v[n] for per_rank in sharded["launches"].values() for v in per_rank.values()),
             "launches_per_step": per_step, "path": path,
+            "sharded_launches_per_step": {label: {r: v[n] for r, v in per_rank.items()}
+                                          for label, per_rank in sharded["launches"].items()},
+            "sharded_protocol_launches": sharded["protocol_launches"][n],
             "protocol_launches": protocol["launches"][n],
             "global_launches_per_step": global_step_launches,
             "global_protocol_launches": global_protocol["launches"][n],

@@ -172,9 +172,12 @@ def test_help_and_refusals(capsys):
     out = capsys.readouterr().out
     assert "s_mnist" in out and "--device" in out
     assert cli.main(["nonsense"]) == 1
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        cli.main(["toy", "--n_devices=2", "--device=cpu"])
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
+    assert "--n_devices" in out and "--coordinator_address" in out
+    # --n_devices starts the ranks, which build the mesh and apply its rules
+    with pytest.raises(RuntimeError, match="not divisible by model_parallel=3"):
+        cli.main(["toy", "--n_devices=2", "--model_parallel=3", "--device=cpu"])
+    # the multi-process flags join a job, and a malformed request raises at once
+    with pytest.raises(ValueError, match="coordinator_address"):
         cli.main(["toy", "--num_processes=2", "--device=cpu"])
     with pytest.raises(SystemExit, match="--device"):
         cli.main(["toy", "--platform=cpu"])

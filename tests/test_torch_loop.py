@@ -357,12 +357,11 @@ def test_phi_freeze_after_first_in_train_task():
     assert not torch.equal(p0.u_mean, p1.u_mean)
 
 
-@pytest.mark.parametrize("what", ["scan_epoch=False", "mesh"])
+@pytest.mark.parametrize("what", ["scan_epoch=False"])
 def test_train_task_refuses_what_is_not_ported(what):
-    """The per-minibatch mode and a mesh raise at entry, before any draw."""
+    """The per-minibatch mode raises at entry, before any draw."""
     toy = tdata.make_toy_dataset(seed=0)
     cfg = TL.V.VARGPConfig(M=4, out_size=4, in_size=2)
-    hp = TL.TrainHyperparams(scan_epoch=what != "scan_epoch=False")
-    mesh = object() if what == "mesh" else None
+    hp = TL.TrainHyperparams(scan_epoch=False)
     with pytest.raises(NotImplementedError, match="not ported"):
-        TL.train_task(0, 0, toy, toy, toy, cfg, hp, mesh=mesh, device="cpu")
+        TL.train_task(0, 0, toy, toy, toy, cfg, hp, device="cpu")

@@ -1,8 +1,7 @@
 """The port's public names: every name in a JAX package ``__all__`` is in
 the port's counterpart and resolves there, except the deliberate
 omissions below, each with its ROADMAP reason (Queue A, "Deliberately not
-ported").  ``vargp_tpu.parallel`` is Queue A item 6 (multi-GPU), still to
-port, and is not checked.
+ported").
 """
 
 import importlib
@@ -26,7 +25,7 @@ OMITTED = {
 }
 PACKAGES = ["vargp_tpu", "vargp_tpu.models", "vargp_tpu.utils", "vargp_tpu.train",
             "vargp_tpu.ops", "vargp_tpu.gpmath", "vargp_tpu.kernels", "vargp_tpu.likelihoods",
-            "vargp_tpu.data"]
+            "vargp_tpu.data", "vargp_tpu.parallel"]
 
 
 @pytest.mark.parametrize("jax_name", PACKAGES)

@@ -5,8 +5,15 @@
 Values parse as Python literals; each command is a driver function and
 its keywords.  ``--device=cpu|cuda`` picks the device (default: the
 card, and no card is an error: nothing moves to the CPU unasked).  Every
-command of the JAX package's CLI is here; its multi-device and
-multi-process flags raise, naming their ROADMAP item.
+command of the JAX package's CLI is here.
+
+Multi-GPU: ``--n_devices=N [--model_parallel=K]`` runs a VAR-GP driver on
+a mesh of N ranks (N / K data x K model).  Alone, the driver starts N
+local ranks, rank r on card r.  With ``--coordinator_address=HOST:PORT
+--num_processes=P --process_id=I`` every process of a P-process job runs
+the same command with its own index: ``parallel.distributed.initialize``
+joins them (process I on card ``LOCAL_RANK``, else I, modulo the visible
+cards), and ``--n_devices=P`` builds the mesh over the job.
 """
 
 import ast
@@ -79,7 +86,12 @@ def main(argv=None):
         print("usage: python -m vargp_tpu_torch <command> [--key=value ...]\n")
         for name, fn in cmds.items():
             print(f"  {name}{inspect.signature(fn)}")
-        print("\n--device=cpu|cuda picks the device (default cuda: the card).")
+        print("\n--device=cpu|cuda picks the device (default cuda: the card).\n"
+              "--n_devices=N [--model_parallel=K]: a VAR-GP driver on a mesh of N ranks "
+              "(N/K data x K model), started here on cards 0..N-1 (or the CPU);\n"
+              "--coordinator_address=HOST:PORT --num_processes=P --process_id=I: join a "
+              "P-process torch.distributed job (each process runs the same command with its "
+              "own I); --n_devices=P then spans the job.")
         return 0
     name = argv[0]
     if name not in cmds:
@@ -88,11 +100,14 @@ def main(argv=None):
     args, kwargs = _parse_args(argv[1:])
     if "platform" in kwargs:
         raise SystemExit("--platform is the JAX CLI's; use --device=cpu|cuda")
-    if any(k in kwargs for k in MULTI_PROCESS_FLAGS):
-        from vargp_tpu_torch.train.loop import _MULTI_DEVICE
-
-        raise NotImplementedError(_MULTI_DEVICE)
     if kwargs.get("device", "cuda") not in ("cpu", "cuda"):
         raise SystemExit(f"--device={kwargs['device']!r}: expected cpu or cuda")
+    # a multi-process job: every process runs the same command with its own
+    # --process_id; the drivers' --n_devices then spans the job's ranks
+    flags = {k: kwargs.pop(k) for k in MULTI_PROCESS_FLAGS if k in kwargs}
+    if flags:
+        from vargp_tpu_torch.parallel.distributed import initialize
+
+        initialize(**flags, device=kwargs.get("device"))
     cmds[name](*args, **kwargs)
     return 0

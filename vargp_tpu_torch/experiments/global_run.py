@@ -22,8 +22,9 @@ import numpy as np
 
 from vargp_tpu_torch import data
 from vargp_tpu_torch.data.tasks import concat
-from vargp_tpu_torch.experiments.vargp_run import _device, _log_dir
+from vargp_tpu_torch.experiments.vargp_run import _log_dir
 from vargp_tpu_torch.models.global_svgp import GlobalSVGPConfig
+from vargp_tpu_torch.ops.device import resolve_device
 from vargp_tpu_torch.train.loop import TrainHyperparams
 from vargp_tpu_torch.train.loop_global import train_task
 from vargp_tpu_torch.utils.checkpoint import save_chain
@@ -62,7 +63,7 @@ def _run(name, tasks, hp, seed, log_dir=None, device=None):
 def toy_global(epochs=10000, M=20, lr=1e-2, batch_size=512, beta=1.0, n_f=10, n_var_samples=3,
                map_est_hypers=False, seed=None, eval_interval=10, log_dir=None, device=None):
     """The toy protocol with M growing as M (t + 1)."""
-    device = _device(device)
+    device = resolve_device(device)
     toy_all = data.make_toy_dataset(seed=seed or 0)
 
     def tasks():
@@ -85,7 +86,7 @@ def split_mnist(data_dir=None, epochs=500, M=60, lr=3e-3, batch_size=512, beta=1
                 log_dir=None, n_tasks=5, grow_per_task=0, device=None):
     """Split-MNIST (the synthetic surrogate without the IDX files); task t
     has M + grow_per_task t inducing rows per class."""
-    device = _device(device)
+    device = resolve_device(device)
     rng = np.random.default_rng(seed or 0)
     train_full = data.load_mnist(data_dir, train=True)
     test_full = data.load_mnist(data_dir, train=False)
@@ -112,7 +113,7 @@ def permuted_mnist(data_dir=None, n_tasks=10, epochs=1000, M=100, lr=3.7e-3, bat
                    log_dir=None, grow_per_task=0, device=None):
     """Permuted-MNIST: task 0 unpermuted; validation and test accumulate
     every permutation seen."""
-    device = _device(device)
+    device = resolve_device(device)
     rng = np.random.default_rng(seed or 0)
     train_full = data.load_mnist(data_dir, train=True)
     test_full = data.load_mnist(data_dir, train=False)

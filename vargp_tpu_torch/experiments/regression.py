@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from vargp_tpu_torch import gpmath
-from vargp_tpu_torch.experiments.vargp_run import _device, _log_dir
+from vargp_tpu_torch.experiments.vargp_run import _log_dir
 from vargp_tpu_torch.kernels import (
     RBFParams,
     default_prior,
@@ -37,6 +37,7 @@ from vargp_tpu_torch.likelihoods import (
     gaussian_predict,
     init_gaussian,
 )
+from vargp_tpu_torch.ops.device import resolve_device
 from vargp_tpu_torch.train.optim import Yogi, tree_leaves, tree_unflatten
 from vargp_tpu_torch.utils.logging import MetricsLogger
 from vargp_tpu_torch.utils.prng import seed_everything, task_generator
@@ -114,7 +115,7 @@ def regression(epochs=800, M=24, lr=1e-2, n_var_samples=3, beta=1.0, seed=0, log
     """Train and report the train RMSE of the predictive mean (averaged over
     16 hyper samples); returns (params, rmse).  ``device=None`` means the
     card; ``draws`` replaces the draw source."""
-    dev = _device(device)
+    dev = resolve_device(device)
     root, seed = seed_everything(seed)
     log_dir = log_dir or _log_dir("regression")
     rng = np.random.default_rng(seed)

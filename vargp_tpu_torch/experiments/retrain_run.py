@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from vargp_tpu_torch import data
-from vargp_tpu_torch.experiments.vargp_run import _device, _log_dir
+from vargp_tpu_torch.experiments.vargp_run import _log_dir
 from vargp_tpu_torch.models import vargp_retrain as R
 from vargp_tpu_torch.models.vargp import select_inducing
 from vargp_tpu_torch.ops.device import resolve_device
@@ -212,7 +212,7 @@ def toy(epochs=5000, M=20, lr=1e-2, batch_size=512, beta=1.0, n_f=10, n_var_samp
     ``task_draws(t)`` replaces task t's draw source (default
     ``RetrainDraws`` over ``task_generator(seed, t)``).  Returns (the last
     task's parameters, the tasks' final accuracy summaries)."""
-    device = _device(device)
+    device = resolve_device(device)
     data_seed = seed or 0
     root, seed = seed_everything(seed)
     log_dir = log_dir or _log_dir("toy_retrain")

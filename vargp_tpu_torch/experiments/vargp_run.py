@@ -13,14 +13,25 @@ task protocols:
 Every driver runs on ``device`` (None means the card).  Task t trains
 from a generator derived from (seed, t) alone, so ``resume=True``, which
 reloads the finished tasks' ``ckpt{t}.npz`` and trains on from the first
-missing one, gives the chain an uninterrupted run gives.  Multi-device
-runs (``n_devices``, ``model_parallel``) are not ported yet and raise.
+missing one, gives the chain an uninterrupted run gives.
+
+``n_devices`` (and ``model_parallel``) run a driver sharded over a
+("data", "model") mesh of ranks (``vargp_tpu_torch.parallel``): inside a
+process group (the CLI's multi-process flags) the mesh spans the job;
+otherwise the driver starts ``n_devices`` local ranks itself, rank r on
+card r (more ranks than visible cards raises) or every rank on the CPU
+under ``device="cpu"``, and returns rank 0's (chain, summaries).  The
+checkpoints, ``metrics.jsonl`` and ``run_meta.json`` are written by rank
+0 alone.
 """
 
 import json
 import os
+import random
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from vargp_tpu_torch import data
 from vargp_tpu_torch.data.tasks import concat
@@ -28,7 +39,8 @@ from vargp_tpu_torch.experiments import plots
 from vargp_tpu_torch.experiments.analysis import params_template
 from vargp_tpu_torch.models.vargp import VARGPConfig
 from vargp_tpu_torch.ops.device import resolve_device
-from vargp_tpu_torch.train.loop import _MULTI_DEVICE, TrainHyperparams, train_task
+from vargp_tpu_torch.parallel import distributed, make_mesh, unshard_to_host
+from vargp_tpu_torch.train.loop import TrainHyperparams, train_task
 from vargp_tpu_torch.utils.checkpoint import load_pytree, save_chain
 from vargp_tpu_torch.utils.convert import params_from_numpy
 from vargp_tpu_torch.utils.logging import MetricsLogger
@@ -40,52 +52,101 @@ def _log_dir(name: str) -> str:
     return os.path.join(base, name)
 
 
-def _device(device, n_devices=None, model_parallel=None):
-    """The run's device, resolved before any data is loaded (no card and
-    no ``device="cpu"`` raises at once); multi-device arguments raise."""
-    if n_devices is not None or model_parallel is not None:
-        raise NotImplementedError(_MULTI_DEVICE)
-    return resolve_device(device)
+def _make_mesh_arg(n_devices, model_parallel, device):
+    """``n_devices`` / ``model_parallel`` -> the run's mesh, or None without
+    ``n_devices``: over the job's ranks inside a process group, else one
+    rank on ``device``."""
+    if not n_devices:
+        return None
+    if dist.is_initialized():
+        return make_mesh(int(n_devices), model_parallel)
+    return make_mesh(int(n_devices), model_parallel, devices=[device])
+
+
+def _rank_driver(name, kwargs):
+    """A spawned rank's run of driver ``name``: inside the job's process
+    group, so the driver builds its mesh over the job."""
+    return globals()[name](**kwargs)
+
+
+def _needs_ranks(n_devices) -> bool:
+    return bool(n_devices) and int(n_devices) > 1 and not dist.is_initialized()
+
+
+def _spawn(name, kwargs):
+    """Driver ``name`` run with ``kwargs`` on ``n_devices`` local ranks:
+    the kernels are built once here, before the ranks load them; a seed
+    of None is drawn here, so that every rank has the same; rank 0's
+    (chain, summaries) come back on ``device``."""
+    devices = distributed.rank_devices(int(kwargs["n_devices"]), kwargs["device"])
+    if devices[0].type == "cuda":
+        from vargp_tpu_torch.ops.cuda import build
+
+        build.library()
+    if kwargs["seed"] is None:
+        kwargs = dict(kwargs, seed=seed_everything(None)[1])
+    chain, summaries = distributed.spawn_ranks(_rank_driver, devices, (name, kwargs),
+                                               timeout=None)[0]
+    dev = resolve_device(kwargs["device"])
+    return [params_from_numpy(p, device=dev)[0] for p in chain], summaries
 
 
 def _run_task_stream(name, tasks, cfg, hp, seed, log_dir=None, ls_init=None, resume=False,
-                     meta=None, device=None):
+                     meta=None, device=None, mesh=None):
     """The continual loop: train each task, grow the chain, save
     ``ckpt{t}.npz``.  ``resume=True`` reloads the tasks whose checkpoint
-    exists in ``log_dir`` and trains the rest."""
+    exists in ``log_dir`` and trains the rest.  Under ``mesh`` every task
+    trains sharded (``train_task``), each task's parameters are gathered
+    whole on every rank (``unshard_to_host``) to extend the chain, and
+    rank 0 alone writes the checkpoints, metrics and ``run_meta.json``."""
+    dev = resolve_device(device) if mesh is None else mesh.device
+    lead = not dist.is_initialized() or dist.get_rank() == 0
+    if mesh is not None and mesh.size > 1 and seed is None:
+        # one seed for every rank: the lead's
+        pick = random.SystemRandom().randrange(2**31) if lead else 0
+        seed = int(mesh.all_sum(torch.tensor(pick, device=dev), "all", "seed"))
     root, seed = seed_everything(seed)
-    dev = resolve_device(device)
     log_dir = log_dir or _log_dir(name)
     chain, summaries, shared = [], [], {}
-    if meta:
+    if meta and mesh is not None:
+        meta = dict(meta, mesh=f"{mesh.shape[0]} data x {mesh.shape[1]} model")
+    if meta and lead:
         os.makedirs(log_dir, exist_ok=True)
         with open(os.path.join(log_dir, "run_meta.json"), "w") as f:
             json.dump(meta, f, indent=2)
         print(f"[{name}] " + " ".join(f"{k}={v}" for k, v in meta.items()))
-    with MetricsLogger(log_dir) as logger:
+    with MetricsLogger(log_dir if lead else None) as logger:
         for t, (train_set, val_set, test_set) in enumerate(tasks):
             ckpt_path = os.path.join(log_dir, f"ckpt{t}.npz")
             if resume and os.path.exists(ckpt_path):
                 tree = load_pytree(ckpt_path, params_template(cfg))
                 chain.append(params_from_numpy(tree, device=dev)[0])
                 summaries.append({})
-                print(f"[{name}] task {t}: resumed from {ckpt_path}")
+                if lead:
+                    print(f"[{name}] task {t}: resumed from {ckpt_path}")
                 continue
             params, info = train_task(
                 task_generator(root, t, dev), t, train_set, val_set, test_set, cfg, hp,
                 prev_chain=chain, logger=logger, seed=seed + t, ls_init=ls_init,
-                shared=shared, device=dev,
+                shared=shared, mesh=mesh, device=None if mesh is not None else dev,
             )
+            if mesh is not None:
+                # COLLECTIVE: every rank gathers the task whole, to save it
+                # and to chain the next task from it
+                params = params_from_numpy(unshard_to_host(params, mesh, cfg.out_size),
+                                           device=dev)[0]
+            if lead:
+                save_chain(log_dir, t, params)
             chain.append(params)
-            save_chain(log_dir, t, params)
             summaries.append(info.get("acc_summary", {}))
-            print(
-                f"[{name}] task {t}: "
-                + " ".join(f"{k.split('/')[-2]}={v:.4f}"
-                           for k, v in info.get("acc_summary", {}).items())
-                + f" (best at epoch {info['step']}; {info['steps_per_sec']:.4f} steps/s,"
-                f" {info['steps']} steps, {info['epochs']} epochs)"
-            )
+            if lead:
+                print(
+                    f"[{name}] task {t}: "
+                    + " ".join(f"{k.split('/')[-2]}={v:.4f}"
+                               for k, v in info.get("acc_summary", {}).items())
+                    + f" (best at epoch {info['step']}; {info['steps_per_sec']:.4f} steps/s,"
+                    f" {info['steps']} steps, {info['epochs']} epochs)"
+                )
     return chain, summaries
 
 
@@ -95,7 +156,10 @@ def toy(epochs=5000, M=20, lr=1e-2, batch_size=512, beta=1.0, n_f=10, n_var_samp
         model_parallel=None, device=None):
     """The toy protocol (the reference's experiments/vargp.py:76-104;
     patience disabled)."""
-    device = _device(device, n_devices, model_parallel)
+    if _needs_ranks(n_devices):
+        return _spawn("toy", locals())
+    device = resolve_device(device)
+    mesh = _make_mesh_arg(n_devices, model_parallel, device)
     toy_all = data.make_toy_dataset(seed=seed or 0)
 
     def tasks():
@@ -118,7 +182,7 @@ def toy(epochs=5000, M=20, lr=1e-2, batch_size=512, beta=1.0, n_f=10, n_var_samp
         pad_eval_batches=-(-len(toy_all) // batch_size),
     )
     return _run_task_stream("toy", tasks(), cfg, hp, seed, log_dir, ls_init=ls_init,
-                            resume=resume, device=device)
+                            resume=resume, device=device, mesh=mesh)
 
 
 def split_mnist(data_dir=None, epochs=500, M=60, lr=3e-3, batch_size=512, beta=10.0, n_f=10,
@@ -130,7 +194,10 @@ def split_mnist(data_dir=None, epochs=500, M=60, lr=3e-3, batch_size=512, beta=1
     synthetic surrogate when no IDX files are found.  The chain is padded
     to ``pad_tasks_to`` tasks (default ``n_tasks``): a short run of the
     first tasks can keep the full protocol's chain width."""
-    device = _device(device, n_devices, model_parallel)
+    if _needs_ranks(n_devices):
+        return _spawn("split_mnist", locals())
+    device = resolve_device(device)
+    mesh = _make_mesh_arg(n_devices, model_parallel, device)
     rng = np.random.default_rng(seed or 0)
     mnist_train_full = data.load_mnist(data_dir, train=True)
     mnist_test = data.load_mnist(data_dir, train=False)
@@ -165,6 +232,7 @@ def split_mnist(data_dir=None, epochs=500, M=60, lr=3e-3, batch_size=512, beta=1
     return _run_task_stream(
         "s_mnist", tasks(), cfg, hp, seed, log_dir, ls_init=ls_init, resume=resume,
         meta={"data_source": data.mnist_source(data_dir)}, device=device,
+        mesh=mesh,
     )
 
 
@@ -177,7 +245,10 @@ def split_digits(epochs=500, M=20, lr=3e-3, batch_size=512, beta=10.0, n_f=10, n
     digits (scikit-learn must be installed: without it loading raises
     ``ImportError``).  ``phi_lr`` / ``phi_wd`` / ``freeze_phi`` are the
     deep kernel's feature-map knobs (no effect unless ``dkl``)."""
-    device = _device(device, n_devices, model_parallel)
+    if _needs_ranks(n_devices):
+        return _spawn("split_digits", locals())
+    device = resolve_device(device)
+    mesh = _make_mesh_arg(n_devices, model_parallel, device)
     rng = np.random.default_rng(seed or 0)
     train_full = data.load_digits_dataset(train=True, seed=0)
     test_full = data.load_digits_dataset(train=False, seed=0)
@@ -211,6 +282,7 @@ def split_digits(epochs=500, M=20, lr=3e-3, batch_size=512, beta=10.0, n_f=10, n
     return _run_task_stream(
         "s_digits", tasks(), cfg, hp, seed, log_dir, ls_init=ls_init, resume=resume,
         meta={"data_source": "sklearn-digits (real)"}, device=device,
+        mesh=mesh,
     )
 
 
@@ -223,7 +295,10 @@ def permuted_mnist(data_dir=None, n_tasks=10, epochs=1000, M=100, lr=3.7e-3, bat
     0 unpermuted; validation and test accumulate every permutation seen.
     ``padded_chain=True`` pads every task's chain to ``n_tasks``; False
     (default) gives task t a chain of t + 1 tasks."""
-    device = _device(device, n_devices, model_parallel)
+    if _needs_ranks(n_devices):
+        return _spawn("permuted_mnist", locals())
+    device = resolve_device(device)
+    mesh = _make_mesh_arg(n_devices, model_parallel, device)
     rng = np.random.default_rng(seed or 0)
     mnist_train_full = data.load_mnist(data_dir, train=True)
     mnist_test_full = data.load_mnist(data_dir, train=False)
@@ -253,6 +328,7 @@ def permuted_mnist(data_dir=None, n_tasks=10, epochs=1000, M=100, lr=3.7e-3, bat
     return _run_task_stream(
         "p_mnist", tasks(), cfg, hp, seed, log_dir, ls_init=ls_init, resume=resume,
         meta={"data_source": data.mnist_source(data_dir)}, device=device,
+        mesh=mesh,
     )
 
 

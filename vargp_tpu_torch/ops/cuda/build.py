@@ -1,8 +1,8 @@
 """Build and load the hand-written Hopper kernels.
 
-One ``nvcc`` call compiles every ``.cu`` file under ``vargp_tpu_torch/csrc``
-for ``sm_90a`` into one shared library with a plain C interface, loaded
-with ``ctypes``.  No PyTorch headers are involved, so the build takes
+One ``nvcc`` per ``.cu`` file under ``vargp_tpu_torch/csrc``, all started
+together, compiles it for ``sm_90a``, and one link makes the objects one
+shared library with a plain C interface, loaded with ``ctypes``.  No PyTorch headers are involved, so the build takes
 seconds.  It runs at first use, never at import: the library goes into
 ``vargp_tpu_torch/_build/<hash of the sources and flags>/``, so a changed
 source rebuilds and an unchanged one is loaded as it is.
@@ -105,22 +105,40 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernels unless this exact source set is already built.
-    Returns the library's path.  Safe against concurrent builders: each
-    writes its own temporary file and renames it into place."""
+    Returns the library's path.  One ``nvcc`` per source, all started
+    together, then one link.  Safe against concurrent builds: each
+    compiles into its own directory and renames its library into place."""
+    import shutil
+
     so = library_path()
     if so.is_file():
         return so
     nvcc = find_nvcc()
     so.parent.mkdir(parents=True, exist_ok=True)
+    work = so.parent / f"objects.{os.getpid()}"
+    work.mkdir(exist_ok=True)
     tmp = so.with_name(f"{_LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"kernel build failed ({' '.join(cmd)}):\n{res.stdout}{res.stderr}"
-        )
-    os.replace(tmp, so)
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objects = [work / f"{src.stem}.o" for src in sources()]
+    jobs = [[nvcc, *compile_flags, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources(), objects)]
+    try:
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for cmd in jobs]
+        failed = [(cmd, out) for cmd, p in zip(jobs, procs)
+                  for out in [p.communicate()[0]] if p.returncode != 0]
+        if not failed:
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, objects)]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            if res.returncode != 0:
+                failed.append((cmd, res.stdout + res.stderr))
+        if failed:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError("kernel build failed:\n" + "\n".join(
+                f"{' '.join(cmd)}\n{out}" for cmd, out in failed))
+        os.replace(tmp, so)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return so
 
 

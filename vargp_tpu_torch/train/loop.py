@@ -19,6 +19,15 @@ by default, over the task's generator): the inducing rows, the initial
 parameters' noise, each block's permutations and noise, and each
 evaluation's hyper samples and function samples.  A test replays the
 JAX package's own draws through the same seam.
+
+Under a ("data", "model") mesh (``vargp_tpu_torch.parallel``) the same
+functions run on each rank's shards: its classes' parameters and chain,
+its rows of each batch.  Every rank draws the whole step's noise and the
+whole epoch's permutation from an identically seeded generator and keeps
+its slice, so a sharded run is the single-device estimator.  The mesh
+adds the collectives and nothing else: the gather of the function
+samples' moments over "model" before the softmax, the sums of the batch
+weight, kl_u and the nll, and the gradients' sums.
 """
 
 import time
@@ -29,7 +38,7 @@ import torch
 
 from vargp_tpu_torch.data.core import ArrayDataset, batch_iter
 from vargp_tpu_torch.kernels.deep import DEFAULT_FEATURES, DEFAULT_HIDDEN
-from vargp_tpu_torch.likelihoods import softmax_predict
+from vargp_tpu_torch.likelihoods import softmax_loss, softmax_predict
 from vargp_tpu_torch.models import vargp as V
 from vargp_tpu_torch.ops.device import check_on_device, resolve_device
 from vargp_tpu_torch.train.optim import (
@@ -110,22 +119,82 @@ def draw_noise(gen: torch.Generator, cfg: V.VARGPConfig, n_prev: int,
     return noise
 
 
+def _shard_noise(noise: dict, mesh, out_size: int):
+    """(the forward's noise on this rank's classes and rows, the function
+    samples' noise on its rows for every class, the whole batch's rows)
+    of a step's whole noise: hyper_eps whole, prefix_eps sliced on the
+    classes, lik_eps on the classes and the rows."""
+    lik = noise["lik_eps"]
+    B = lik.shape[-1]
+    cs, rs = mesh.class_slice(out_size), mesh.row_slice(B)
+    local = {"hyper_eps": noise["hyper_eps"], "lik_eps": lik[:, :, cs, rs]}
+    if "prefix_eps" in noise:
+        local["prefix_eps"] = noise["prefix_eps"][:, :, cs]
+    return local, lik[..., rs], B
+
+
+def _class_moments(mesh, f_mean, f_var):
+    """(f_mean, f_var) of every class, (H, O, B / dp): this rank's classes
+    gathered with the others' over the model axis, in one collective."""
+    if mesh.shape[1] == 1:
+        return f_mean, f_var
+    both = mesh.gather_classes(torch.stack([f_mean, f_var]), dim=2)
+    return both[0], both[1]
+
+
+def _sharded_loss(params, prev, prior, x, y, w, noise, cfg, chain_mask, dev, mesh):
+    """This rank's ELBO pieces: kl_hypers, kl_u over its classes, the nll
+    over its rows (every class's moments gathered before the softmax)."""
+    check_on_device(dev, *V._tensors(params, prev, *prior, x, y, w, chain_mask,
+                                     *noise.values()))
+    local, lik_rows, B = _shard_noise(noise, mesh, cfg.out_size)
+    if x.shape[0] * mesh.shape[0] != B:
+        raise ValueError(f"{x.shape[0]} rows on a rank of {mesh.shape[0]} data ranks, the "
+                         f"noise's batch has {B}")
+    out = V.forward(params, prev, prior, x, local, mesh.local_cfg(cfg), with_kl=True,
+                    chain_mask=chain_mask)
+    f_mean, f_var = _class_moments(mesh, out.f_mean, out.f_var)
+    nll = softmax_loss(f_mean, f_var, y, lik_rows, weights=w)
+    return out.kl_hypers, out.kl_u, nll
+
+
 def elbo_step(params, opt_state, prev, prior, x, y, w, noise, *,
               cfg: V.VARGPConfig, opt, beta: float, n_train, chain_mask=None,
-              device=None):
+              device=None, mesh=None):
     """One optimizer step on the ELBO.  Returns (params, opt_state, loss,
     (kl_hypers, kl_u, nll)), the loss and its pieces taken before the
-    update and detached.  ``device=None`` means the card."""
+    update and detached.  ``device=None`` means the card.
+
+    Under ``mesh`` the parameters, chain and optimizer state are this
+    rank's shards, x, y, w its rows, and ``noise`` the whole step's; the
+    returned loss and pieces are the whole job's, the same on every rank.
+    The ELBO is split into rank shares whose sum is the ELBO (kl_hypers
+    over every rank, each class's kl_u over the data ranks, each row's nll
+    over the model ranks), each rank differentiates its share, and the
+    gradients are summed where their leaves are shared."""
     leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
     p = tree_unflatten(params, leaves)
     with torch.enable_grad():
-        klh, klu, nll = V.loss(p, prev, prior, x, y, noise, cfg, weights=w,
-                               chain_mask=chain_mask, device=device)
-        scale = n_train / torch.clamp(torch.sum(w), min=1.0)
-        total = beta * klh + klu + scale * nll
-    grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        if mesh is None:
+            klh, klu, nll = V.loss(p, prev, prior, x, y, noise, cfg, weights=w,
+                                   chain_mask=chain_mask, device=device)
+            scale = n_train / torch.clamp(torch.sum(w), min=1.0)
+            total = objective = beta * klh + klu + scale * nll
+        else:
+            klh, klu, nll = _sharded_loss(p, prev, prior, x, y, w, noise, cfg, chain_mask,
+                                          resolve_device(device), mesh)
+            w_sum = mesh.all_sum(torch.sum(w), "data", "sum w")
+            scale = n_train / torch.clamp(w_sum, min=1.0)
+            dp, mp = mesh.shape
+            objective = beta * klh / (dp * mp) + klu / dp + scale * nll / mp
+    grads = torch.autograd.grad(objective, leaves, allow_unused=True)
     # a leaf the loss does not read (log_logvar under MAP) has gradient 0
     grads = [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)]
+    if mesh is not None:
+        grads = mesh.sum_gradients(grads, params, cfg.out_size)
+        klu = mesh.all_sum(klu, "model", "sum kl_u")
+        nll = mesh.all_sum(nll, "data", "sum nll")
+        total = beta * klh + klu + scale * nll
     params, opt_state = opt.update(grads, opt_state, params)
     return params, opt_state, total.detach(), (klh.detach(), klu.detach(), nll.detach())
 
@@ -145,25 +214,29 @@ def block_draws(gen: torch.Generator, n_pad: int, batch_size: int, n_epochs: int
 
 def train_block(params, opt_state, prev, prior, chain_mask, n_train, data_x, data_y,
                 data_w, gen: torch.Generator | None, *, cfg: V.VARGPConfig, opt, beta: float,
-                batch_size: int, n_epochs: int, device=None, draws=None):
+                batch_size: int, n_epochs: int, device=None, draws=None, mesh=None):
     """``n_epochs`` epochs of ELBO steps over a dataset padded to a
     multiple of ``batch_size`` with zero-weight rows (``pad_dataset_to_device``).
     The steps' (row indices, noise) are ``draws`` when given, else
     ``block_draws`` from ``gen``.  Returns (params, opt_state, losses
-    (steps,), pieces (steps, 3)), all on the device."""
+    (steps,), pieces (steps, 3)), all on the device.  Under ``mesh`` every
+    rank holds the dataset whole and steps on its rows of each batch."""
     dev = resolve_device(device)
     n_pad = data_x.shape[0]
     if n_pad % batch_size:
         raise ValueError(f"{n_pad} dataset rows are not a multiple of {batch_size}")
+    rows = slice(None) if mesh is None else mesh.row_slice(batch_size)
     if draws is None:
         if gen.device.type != dev.type:
             raise ValueError(f"generator on {gen.device}, the block runs on {dev}")
         draws = block_draws(gen, n_pad, batch_size, n_epochs, cfg, len(prev))
     losses, pieces = [], []
     for idx, noise in draws:
+        idx = idx[rows]
         params, opt_state, loss, aux = elbo_step(
             params, opt_state, prev, prior, data_x[idx], data_y[idx], data_w[idx], noise,
             cfg=cfg, opt=opt, beta=beta, n_train=n_train, chain_mask=chain_mask, device=dev,
+            mesh=mesh,
         )
         losses.append(loss)
         pieces.append(torch.stack(aux))
@@ -193,18 +266,31 @@ def pad_dataset_to_device(data, targets, batch_size: int, n_rows: int | None = N
 # Evaluation
 # ---------------------------------------------------------------------------
 
-_MULTI_DEVICE = ("multi-device runs (a mesh, --n_devices, --model_parallel, several "
-                 "processes) are not ported yet: ROADMAP Queue A item 6")
-
-
 def _eval_budgets(hp: TrainHyperparams | None):
     if hp is None:
         return None, None, False
     return hp.eval_n_f, hp.eval_n_var_samples, hp.eval_resample_per_batch
 
 
+def predict_probs(params, prev, x, noise: dict, cfg: V.VARGPConfig, *, n_f: int | None = None,
+                  n_var_samples: int | None = None, chain_mask=None, device=None, mesh=None):
+    """Class probabilities (B, out_size): ``V.predict``; under ``mesh``
+    those of this rank's rows ``x`` (B / dp of them) from its shards and
+    the whole batch's ``noise``."""
+    if mesh is None:
+        return V.predict(params, prev, x, noise, cfg, n_f=n_f, n_var_samples=n_var_samples,
+                         chain_mask=chain_mask, device=device)
+    check_on_device(resolve_device(device), *V._tensors(params, prev, x, chain_mask,
+                                                        *noise.values()))
+    cfg_eval = V.eval_budget_cfg(cfg, n_f=n_f, n_var_samples=n_var_samples)
+    local, lik_rows, _ = _shard_noise(noise, mesh, cfg.out_size)
+    out = V.forward(params, prev, None, x, local, mesh.local_cfg(cfg_eval), with_kl=False,
+                    chain_mask=chain_mask)
+    return softmax_predict(*_class_moments(mesh, out.f_mean, out.f_var), lik_rows)
+
+
 def eval_predictions(params, prev, chain_mask, xs, draws: dict, cfg: V.VARGPConfig,
-                     hp: TrainHyperparams | None = None, *, device=None):
+                     hp: TrainHyperparams | None = None, *, device=None, mesh=None):
     """Yield each stacked batch's class probabilities (B, out_size).
 
     ``draws`` is one evaluation's noise (``GeneratorDraws.evaluation``):
@@ -214,20 +300,26 @@ def eval_predictions(params, prev, chain_mask, xs, draws: dict, cfg: V.VARGPConf
     posterior built once for all the batches (``build_posterior``, then
     ``marginal_diag`` and ``softmax_predict`` per batch): the same MC
     estimator over the split as the reference's per-batch ``predict``,
-    which ``eval_resample_per_batch`` restores."""
+    which ``eval_resample_per_batch`` restores.  Under ``mesh``, xs holds
+    this rank's rows of each batch and the draws are the whole split's."""
     dev = resolve_device(device)
     n_f, n_v, resample = _eval_budgets(hp)
     if resample:
         for i in range(xs.shape[0]):
             noise = {"hyper_eps": draws["hyper_eps"][i], "lik_eps": draws["lik_eps"][i]}
-            yield V.predict(params, prev, xs[i], noise, cfg, n_f=n_f, n_var_samples=n_v,
-                            chain_mask=chain_mask, device=dev)
+            yield predict_probs(params, prev, xs[i], noise, cfg, n_f=n_f, n_var_samples=n_v,
+                                chain_mask=chain_mask, device=dev, mesh=mesh)
         return
     check_on_device(dev, *V._tensors(params, prev, xs, chain_mask, *draws.values()))
-    cp = V.build_posterior(params, prev, draws["hyper_eps"], cfg, chain_mask=chain_mask)
+    lcfg = cfg if mesh is None else mesh.local_cfg(cfg)
+    cp = V.build_posterior(params, prev, draws["hyper_eps"], lcfg, chain_mask=chain_mask)
     for i in range(xs.shape[0]):
-        f_mean, f_var = V.marginal_diag(cp, params, xs[i], cfg, chain_mask=chain_mask)
-        yield softmax_predict(f_mean, f_var, draws["lik_eps"][i])
+        f_mean, f_var = V.marginal_diag(cp, params, xs[i], lcfg, chain_mask=chain_mask)
+        lik = draws["lik_eps"][i]
+        if mesh is not None:
+            f_mean, f_var = _class_moments(mesh, f_mean, f_var)
+            lik = lik[..., mesh.row_slice(lik.shape[-1])]
+        yield softmax_predict(f_mean, f_var, lik)
 
 
 def make_device_eval_fn(cfg: V.VARGPConfig, hp: TrainHyperparams | None = None, mesh=None):
@@ -239,21 +331,24 @@ def make_device_eval_fn(cfg: V.VARGPConfig, hp: TrainHyperparams | None = None, 
     device, so a split costs the caller one host read.  A non-finite
     probability anywhere makes the count NaN: the argmax of NaN
     probabilities is still an index, so a count alone would hide a
-    diverged posterior (the reference asserts on the probabilities)."""
-    if mesh is not None:
-        raise NotImplementedError(_MULTI_DEVICE)
+    diverged posterior (the reference asserts on the probabilities).
+    Under ``mesh`` the stacks hold this rank's rows of each batch, and the
+    counts are summed over the data axis (a NaN reaches every rank)."""
 
     def eval_acc(params, prev, chain_mask, xs, ys, ws, draws, *, device=None):
         with torch.no_grad():
             correct = xs.new_zeros(())
             ok = torch.ones((), dtype=torch.bool, device=xs.device)
             for i, probs in enumerate(eval_predictions(params, prev, chain_mask, xs, draws, cfg,
-                                                       hp, device=device)):
+                                                       hp, device=device, mesh=mesh)):
                 hits = (torch.argmax(probs, dim=-1) == ys[i]).to(torch.float32) * ws[i]
                 ok = ok & torch.all(torch.isfinite(probs))
                 correct = correct + torch.sum(hits)
             correct = torch.where(ok, correct, torch.full_like(correct, float("nan")))
-            return correct, torch.sum(ws)
+            if mesh is None:
+                return correct, torch.sum(ws)
+            counts = mesh.all_sum(torch.stack([correct, torch.sum(ws)]), "data", "sum counts")
+            return counts[0], counts[1]
 
     return eval_acc
 
@@ -369,14 +464,36 @@ def train_task(gen, task_id: int, train_set: ArrayDataset, val_set: ArrayDataset
     run's tasks.  ``seed`` is the JAX signature's data seed, read only by
     the per-minibatch mode, which is not ported.  ``info`` holds the best
     evaluation's params, acc_summary and step (its epoch), and the run's
-    steps_per_sec, steps and epochs."""
+    steps_per_sec, steps and epochs.
+
+    ``mesh`` (``parallel.make_mesh``) runs the task sharded: ``gen`` is
+    the task's generator seeded alike on every rank (or its seed), and
+    ``prev_chain`` holds whole parameters on every rank.  The parameters,
+    their moments and the frozen padded chain are sharded over "model",
+    the prior and the chain mask replicated, each minibatch and
+    evaluation batch split over "data".  The device is the mesh's, and
+    ``best_params`` (and ``info["params"]``) are this rank's shard
+    (``parallel.unshard_to_host`` gathers them)."""
     if not hp.scan_epoch:
         raise NotImplementedError(
             "scan_epoch=False (one host dispatch per minibatch) is not ported: "
             "train blocks are the port's only mode")
-    if mesh is not None:
-        raise NotImplementedError(_MULTI_DEVICE)
-    dev = resolve_device(device)
+    if mesh is None:
+        dev = resolve_device(device)
+        shard = replicate = lambda tree: tree
+    else:
+        from vargp_tpu_torch import parallel  # parallel imports this module
+
+        dev = mesh.device
+        if device is not None and resolve_device(device).type != dev.type:
+            raise ValueError(f"device={device!r}, the mesh's rank runs on {dev}")
+
+        def shard(tree):
+            return parallel.shard_params(tree, mesh, cfg.out_size)
+
+        def replicate(tree):
+            return parallel.replicate(tree, mesh)
+
     if draws is None:
         if not isinstance(gen, torch.Generator):
             gen = torch.Generator(device=dev).manual_seed(int(gen))
@@ -387,6 +504,7 @@ def train_task(gen, task_id: int, train_set: ArrayDataset, val_set: ArrayDataset
         prev, chain_mask = V.pad_chain(prev, cfg, hp.pad_tasks_to, device=dev)
     else:
         chain_mask = torch.ones((len(prev),), device=dev)
+    prev, chain_mask = shard(prev), replicate(chain_mask)
     shared = shared if shared is not None else {}
     kernel_prior_from = prev_chain[-1].kernel if prev_chain else None
     phi_init = prev_chain[-1].phi if (prev_chain and cfg.dkl) else None
@@ -403,6 +521,7 @@ def train_task(gen, task_id: int, train_set: ArrayDataset, val_set: ArrayDataset
         init["kernel_eps"], init["u_eps"], z_init, cfg, kernel_prior_from=kernel_prior_from,
         phi_uniform=init.get("phi_uniform"), phi_init=phi_init, log_lengthscale_init=log_ls,
     )
+    params, prior = shard(params), replicate(prior)
 
     opt = shared.setdefault("opt", make_optimizer(hp))
     opt_state = opt.init(params)
@@ -414,10 +533,12 @@ def train_task(gen, task_id: int, train_set: ArrayDataset, val_set: ArrayDataset
     n_pad = data_x.shape[0]
     steps_per_epoch = n_pad // hp.batch_size
 
-    eval_acc = shared.setdefault("eval_acc", make_device_eval_fn(cfg, hp))
+    eval_acc = shared.setdefault("eval_acc", make_device_eval_fn(cfg, hp, mesh))
     cfg_eval = V.eval_budget_cfg(cfg, n_f=hp.eval_n_f, n_var_samples=hp.eval_n_var_samples)
+    rows = slice(None) if mesh is None else mesh.row_slice(hp.batch_size)
     eval_stacks = {
-        split: (stack_eval_set(ds, hp.batch_size, _eval_batches(hp, ds), device=dev), len(ds))
+        split: (tuple(a[:, rows] for a in stack_eval_set(
+            ds, hp.batch_size, _eval_batches(hp, ds), device=dev)), len(ds))
         for split, ds in (("train", train_set), ("val", val_set), ("test", test_set))
     }
     n_eval_batches = max(xs.shape[0] for (xs, _, _), _ in eval_stacks.values())
@@ -445,6 +566,7 @@ def train_task(gen, task_id: int, train_set: ArrayDataset, val_set: ArrayDataset
             params, opt_state, prev, prior, chain_mask, n_train, data_x, data_y, data_w, None,
             cfg=cfg, opt=opt, beta=hp.beta, batch_size=hp.batch_size, n_epochs=block,
             device=dev, draws=draws.block(n_pad, hp.batch_size, block, cfg, len(prev)),
+            mesh=mesh,
         )
         steps += block * steps_per_epoch
         epoch += block
