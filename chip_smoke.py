@@ -276,8 +276,8 @@ GLOBAL_CHOL = {"S-MNIST global": (30, 60), "P-MNIST global": (30, 100), "toy glo
 # regression(epochs=300, M=16) (RMSE below 0.3, as the JAX package's test
 # asks) and its first steps again on the CPU.
 RETRAIN_STEP = dict(M=20, O=4, D=2, B=512, H=3, n_f=10, lr=1e-2, beta=1.0, steps=5)
-RETRAIN_LAUNCHES = {"task 0": {"rbf_gram": 2, "rbf_gram_sym": 1, "cholesky": 1},
-                    "task 1": {"rbf_gram": 4, "rbf_gram_sym": 2, "cholesky": 3}}
+RETRAIN_LAUNCHES = {"task 0": {"rbf_gram": 2, "cholesky": 1},
+                    "task 1": {"rbf_gram": 4, "cholesky": 3}}
 RETRAIN_PROTOCOL = dict(n_tasks=2, epochs=30, eval_interval=10, seed=SEED,
                         eval_epochs=[10, 20, 30], elbo_drop=0.5, count_tol=0.005)
 REGRESSION = dict(epochs=300, M=16, seed=SEED, max_rmse=0.3, replay_steps=3)
@@ -711,10 +711,8 @@ def check_kernels(dev):
     k1_cases["ragged"] = (2, 77, 33, 2)
     for label, (O, M, D, H) in k1_cases.items():
         z, _, invs, _, gamma2 = gram_inputs(rng, O, M, D, H, 1, dev)
-        before = sym_gram.launches
-        K = sym_gram(z, invs, gamma2)
-        torch.cuda.synchronize()
-        if sym_gram.launches != before + 1:
+        K, n = launched(sym_gram, z, invs, gamma2)
+        if n != {"vargp_sym_gram": 1}:
             raise AssertionError("K1's launch counter did not count its launch")
         ref = sym_gram_plain(z, invs, gamma2)
         e = max_abs_err(K, ref)
@@ -734,10 +732,8 @@ def check_kernels(dev):
                      "H*O = 1": (1, 1000, 784, 1, 200)})
     for label, (O, M, D, H, B) in k4_cases.items():
         z, x, _, invs2, gamma2 = gram_inputs(rng, O, M, D, H, B, dev)
-        before = cross_gram.launches
-        Kx = cross_gram(z, x, invs2, gamma2)
-        torch.cuda.synchronize()
-        if cross_gram.launches != before + 1:
+        Kx, n = launched(cross_gram, z, x, invs2, gamma2)
+        if n != {"vargp_cross_gram": 1}:
             raise AssertionError("K4's launch counter did not count its launch")
         ref = cross_gram_plain(z, x, invs2, gamma2)
         e = max_abs_err(Kx, ref)
@@ -773,10 +769,8 @@ def compare_k3(cases: dict) -> float:
 
     err = 0.0
     for label, A in cases.items():
-        before = diag_chol.launches
-        L = diag_chol(A)
-        torch.cuda.synchronize()
-        if diag_chol.launches != before + 1:
+        L, n = launched(diag_chol, A)
+        if n != {"vargp_diag_chol": 1}:
             raise AssertionError("K3's launch counter did not count its launch")
         ref = diag_chol_plain(A)
         e = max_abs_err(L, ref)
@@ -830,10 +824,8 @@ def check_k2(dev):
         ("H*O = 1", (1, 1000, 784, 1)),
     ):
         z, _, invs, _, gamma2 = gram_inputs(rng, O, M, D, H, 1, dev)
-        before = sym_gram_tri.launches
-        K = sym_gram_tri(z, invs, gamma2)
-        torch.cuda.synchronize()
-        if sym_gram_tri.launches != before + 1:
+        K, n = launched(sym_gram_tri, z, invs, gamma2)
+        if n != {"vargp_sym_gram_tri": 1}:
             raise AssertionError("K2's launch counter did not count its launch")
         ref = sym_gram_plain(z, invs, gamma2)
         e = max_abs_err(K, ref)
@@ -884,10 +876,8 @@ def check_k5(dev):
     err, f64 = 0.0, {}
     for label, (a, b, g) in cases.items():
         sym = a is b
-        before, before_sym = rbf_gram.launches, rbf_gram.sym_launches
-        K = rbf_gram(a, b, g)
-        torch.cuda.synchronize()
-        if (rbf_gram.launches, rbf_gram.sym_launches) != (before + 1, before_sym + int(sym)):
+        K, n = launched(rbf_gram, a, b, g)
+        if n != {k5_symbol(a, b): 1}:
             raise AssertionError(f"K5 {label}: the wrong launch (symmetric expected: {sym})")
         ref = rbf_gram_plain(a, b, g)
         e = max_abs_err(K, ref)
@@ -947,10 +937,8 @@ def check_chol_kernels(dev):
     flag, clusters = {}, {}
     for G in (30, 200):
         K = spd_blocks(rng, G, dev)
-        before = diag_chol_chunked.launches
-        L = diag_chol_chunked(junk_above(K))
-        torch.cuda.synchronize()
-        if diag_chol_chunked.launches != before + 1:
+        L, n = launched(diag_chol_chunked, junk_above(K))
+        if n != {"vargp_diag_chol_chunked": 1}:
             raise AssertionError("K8's launch counter did not count its launch")
         ref = diag_chol_plain(K)
         e = max_abs_err(L, ref)
@@ -963,11 +951,9 @@ def check_chol_kernels(dev):
               "one-row last panel": (30, 129), "analysis": (200, 300), "one matrix": (1, 1000)}
     for label, (G, S) in shapes.items():
         K = spd_blocks(rng, G, dev, S)
-        b7, b6 = cholesky.launches, chol_inv.launches
-        L = cholesky(junk_above(K))
-        L6, X = chol_inv(junk_above(K))
-        torch.cuda.synchronize()
-        if (cholesky.launches, chol_inv.launches) != (b7 + 1, b6 + 1):
+        L, n7 = launched(cholesky, junk_above(K))
+        (L6, X), n6 = launched(chol_inv, junk_above(K))
+        if (n7, n6) != ({"vargp_chol": 1}, {"vargp_chol_inv": 1}):
             raise AssertionError("K7's or K6's launch counter did not count its launch")
         clusters[label] = cluster_size(G, n_sm)
         print(f"  K7/K6 at {label} {tuple(K.shape)}: cluster of {clusters[label]} blocks per matrix")
@@ -992,17 +978,39 @@ def check_chol_kernels(dev):
     return errs, flag, clusters
 
 
-# wrapper name -> its module under vargp_tpu_torch.ops.cuda
-KERNELS = {"sym_gram": "sym_gram", "sym_gram_tri": "sym_gram_tri", "diag_chol": "diag_chol",
-           "cross_gram": "cross_gram", "rbf_gram": "rbf_gram", "chol_inv": "chol_inv",
-           "cholesky": "chol", "diag_chol_chunked": "diag_chol"}
+# each launch counter and the launcher symbols it sums in
+# vargp_tpu_torch.utils.tracing.LAUNCHES: rbf_gram every K5 launch,
+# rbf_gram_sym those of its symmetric kernel (above SMALL_D features; the
+# small kernel serves self- and cross Grams alike)
+COUNTERS = {
+    "sym_gram": ("vargp_sym_gram",), "sym_gram_tri": ("vargp_sym_gram_tri",),
+    "diag_chol": ("vargp_diag_chol",), "cross_gram": ("vargp_cross_gram",),
+    "rbf_gram": ("vargp_rbf_gram", "vargp_rbf_gram_sym", "vargp_rbf_gram_small"),
+    "rbf_gram_sym": ("vargp_rbf_gram_sym",), "chol_inv": ("vargp_chol_inv",),
+    "cholesky": ("vargp_chol",), "diag_chol_chunked": ("vargp_diag_chol_chunked",),
+}
 
 
-def wrappers() -> dict:
-    import importlib
+def launched(fn, *args):
+    """``fn(*args)`` with the card synchronised after it, and the launches it
+    made: (its result, {launcher symbol: launches})."""
+    from vargp_tpu_torch.utils import tracing
 
-    return {n: getattr(importlib.import_module(f"vargp_tpu_torch.ops.cuda.{m}"), n)
-            for n, m in KERNELS.items()}
+    before = tracing.LAUNCHES.copy()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, dict(tracing.LAUNCHES - before)
+
+
+def k5_symbol(a, b) -> str:
+    """The launcher K5 takes for rbf_gram(a, b): the small kernel up to
+    SMALL_D features, else the symmetric kernel for one tensor and the
+    cross kernel for two."""
+    from vargp_tpu_torch.ops.cuda.rbf_gram import SMALL_D
+
+    if a.shape[-1] <= SMALL_D:
+        return "vargp_rbf_gram_small"
+    return "vargp_rbf_gram_sym" if a is b else "vargp_rbf_gram"
 
 
 # The routes through the chain's factorisation: the default (K3 plus
@@ -1035,10 +1043,8 @@ def route_env(route: str):
 
 
 def counters() -> dict:
-    """Every launch counter: counter name -> (wrapper, attribute); each
-    wrapper's ``launches``, and K5's symmetric kernel's as rbf_gram_sym."""
-    return {**{n: (w, "launches") for n, w in wrappers().items()},
-            "rbf_gram_sym": (wrappers()["rbf_gram"], "sym_launches")}
+    """Every launch counter: counter name -> the launcher symbols it sums."""
+    return COUNTERS
 
 
 def expected_launches(name: str, route: str = "default") -> dict:
@@ -1054,12 +1060,15 @@ def expected_launches(name: str, route: str = "default") -> dict:
 
 
 def reset_counts():
-    for w, attr in counters().values():
-        setattr(w, attr, 0)
+    from vargp_tpu_torch.utils import tracing
+
+    tracing.LAUNCHES.clear()
 
 
 def read_counts():
-    return {n: getattr(w, attr) for n, (w, attr) in counters().items()}
+    from vargp_tpu_torch.utils import tracing
+
+    return {n: sum(tracing.LAUNCHES[k] for k in keys) for n, keys in COUNTERS.items()}
 
 
 def run_slice(device, name="A", route="default"):
@@ -1692,10 +1701,8 @@ def check_k5_global(dev):
         a, b, g = global_gram_inputs(rng, G, S, N, D, dev)
         inputs[label] = (a, b, g)
         sym = a is b
-        before, before_sym = rbf_gram.launches, rbf_gram.sym_launches
-        K = rbf_gram(a, b, g)
-        torch.cuda.synchronize()
-        if (rbf_gram.launches, rbf_gram.sym_launches) != (before + 1, before_sym + int(sym)):
+        K, n = launched(rbf_gram, a, b, g)
+        if n != {k5_symbol(a, b): 1}:
             raise AssertionError(f"K5 {label}: the wrong launch (symmetric expected: {sym})")
         ref = rbf_gram_plain(a, b, g)
         e = max_abs_err(K, ref)
@@ -1722,10 +1729,8 @@ def check_k7_global(dev):
     err, inputs = 0.0, {}
     for label, (G, S) in GLOBAL_CHOL.items():
         K = spd_blocks(rng, G, dev, S)
-        before = cholesky.launches
-        L = cholesky(junk_above(K))
-        torch.cuda.synchronize()
-        if cholesky.launches != before + 1:
+        L, n = launched(cholesky, junk_above(K))
+        if n != {"vargp_chol": 1}:
             raise AssertionError("K7's launch counter did not count its launch")
         ref = cholesky_plain(K)
         e = max_abs_err(L, ref)
@@ -2102,10 +2107,8 @@ def check_k5_small(dev):
         a, b, g = small_gram_inputs(rng, G, S, N, D, dev, shared)
         inputs[label] = (a, b, g)
         sym = a is b
-        before, before_sym = rbf_gram.launches, rbf_gram.sym_launches
-        K = rbf_gram(a, b, g)
-        torch.cuda.synchronize()
-        if (rbf_gram.launches, rbf_gram.sym_launches) != (before + 1, before_sym + int(sym)):
+        K, n = launched(rbf_gram, a, b, g)
+        if n != {k5_symbol(a, b): 1}:
             raise AssertionError(f"K5 {label}: the wrong launch (symmetric expected: {sym})")
         ref = rbf_gram_plain(a, b, g)
         e = max_abs_err(K, ref)
@@ -2349,7 +2352,6 @@ def check_retrain_protocol(dev, smi):
     # after; an evaluation (one batch): K5 2 (1 symmetric), K7 1
     want = {k: 0 for k in counters()}
     want.update(rbf_gram=2 * steps[0] + 4 * sum(steps[1:]) + 2 * n_eval,
-                rbf_gram_sym=steps[0] + 2 * sum(steps[1:]) + n_eval,
                 cholesky=steps[0] + 3 * sum(steps[1:]) + n_eval)
     if launches != want:
         raise AssertionError(f"retrain protocol: launches {launches}, expected {want}")
@@ -2476,7 +2478,7 @@ def check_regression(dev, smi):
           f"0.1; limit {pr['max_rmse']}), {wall:.3f} s, launches {launches}; {smi}")
     n = pr["epochs"] + 1
     want = {k: 0 for k in counters()}
-    want.update(rbf_gram=2 * n, rbf_gram_sym=n, cholesky=n)
+    want.update(rbf_gram=2 * n, cholesky=n)
     if launches != want:
         raise AssertionError(f"regression: launches {launches}, expected {want}")
     if not rmse < pr["max_rmse"]:
@@ -2558,10 +2560,8 @@ def check_k7_small(dev, cond_cov):
     cases = {label: spd_blocks(rng, G, dev, S) for label, (G, S) in SMALL_CHOL.items()}
     cases["retrain cond_cov step 0"] = cond_cov
     for label, K in cases.items():
-        before = cholesky.launches
-        L = cholesky(junk_above(K))
-        torch.cuda.synchronize()
-        if cholesky.launches != before + 1:
+        L, n = launched(cholesky, junk_above(K))
+        if n != {"vargp_chol": 1}:
             raise AssertionError("K7's launch counter did not count its launch")
         ref = cholesky_plain(K)
         if not bool(torch.isfinite(ref).all()):

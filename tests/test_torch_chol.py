@@ -47,6 +47,7 @@ from vargp_tpu_torch.ops.cuda.chol import (blocked_plain, cholesky, cholesky_pla
 from vargp_tpu_torch.ops.cuda.chol_inv import chol_inv, chol_inv_plain
 from vargp_tpu_torch.gpmath import linalg as tlinalg
 from vargp_tpu_torch.ops.cuda.diag_chol import diag_chol, diag_chol_chunked, diag_chol_plain
+from vargp_tpu_torch.utils import tracing
 from tests._torch_cases import _mm3, _tf32
 
 f32 = np.float32
@@ -202,7 +203,7 @@ def test_wrappers_reject_unknown_devices():
     for fn in (cholesky, chol_inv, diag_chol_chunked):
         with pytest.raises(ValueError, match="no kernel for device"):
             fn(K)
-    assert cholesky.launches == chol_inv.launches == diag_chol_chunked.launches == 0
+    assert not {"vargp_chol", "vargp_chol_inv", "vargp_diag_chol_chunked"} & set(+tracing.LAUNCHES)
 
 
 def _mm1(a, b):
@@ -360,4 +361,4 @@ def test_k3_k8_launch_counters_stay_zero_on_the_cpu():
     K = _t(_spd(np.random.default_rng(14), (3,), 300))
     diag_chol(K[:, :100, :100]), diag_chol_chunked(K[:, :128, :128].contiguous())
     tdispatch.chol_and_inv(K)
-    assert diag_chol.launches == diag_chol_chunked.launches == 0
+    assert not {"vargp_diag_chol", "vargp_diag_chol_chunked"} & set(+tracing.LAUNCHES)

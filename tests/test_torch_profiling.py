@@ -76,7 +76,8 @@ def test_parse_trace_own_time_subtracts_nested_host_ops(tmp_path):
 def test_profile_fn_on_the_cpu():
     a, b = torch.randn(64, 64), torch.randn(64, 64)
     out = profile_fn(lambda: torch.relu(a @ b), iters=3, top=5, device="cpu")
-    assert set(out) == {"top", "events_per_call", "launches_per_call", "busy_ms"}
+    assert set(out) == {"top", "events_per_call", "launches_per_call", "busy_ms", "spans"}
+    assert out["spans"] == {}  # the function opens no span
     assert len(out["top"]) <= 5 and "aten::mm" in out["launches_per_call"]
     assert out["launches_per_call"]["aten::mm"] == 1.0
     assert out["events_per_call"] >= 2 and out["busy_ms"] > 0

@@ -53,6 +53,7 @@ from vargp_tpu_torch.likelihoods import softmax_loss, softmax_predict
 from vargp_tpu_torch.ops.device import check_on_device, resolve_device
 from vargp_tpu_torch.ops.dispatch import _env_choice, chol_and_inv
 from vargp_tpu_torch.train.optim import tree_leaves
+from vargp_tpu_torch.utils import tracing
 
 
 class TaskPosterior(NamedTuple):
@@ -205,37 +206,38 @@ def build_posterior(params: VARGPParams, prev: Sequence[TaskPosterior],
                     hyper_eps: torch.Tensor, cfg: VARGPConfig, *,
                     chain_mask: torch.Tensor | None = None) -> ChainPosterior:
     """Sample theta and build the AR joint posterior over the whole chain."""
-    theta = sample_hypers(params.kernel, hyper_eps, map_est=cfg.map_est_hypers)
-    z_all, u_means, u_trils, u_tril_t = _concat_chain(params, prev, cfg)
-    if cfg.dkl:
-        Kzz = deep_gram(params.phi, theta, z_all)  # (H, O, S, S), K5
-    else:
-        Kzz = sym_gram(theta, z_all)  # (H, O, S, S), K1 or K2
-    if chain_mask is not None:
-        rm = _row_mask(chain_mask, cfg.M)
-        Kzz = Kzz * (rm[:, None] * rm[None, :]) + torch.diag(1.0 - rm)
-    form = _ar_form()
-    if cfg.solve_via_inverse:
-        L, L_inv = chol_and_inv(gpmath.add_jitter(Kzz, cfg.jitter))
-    else:
-        L, L_inv = gpmath.cholesky(Kzz, cfg.jitter), None
-    equal_blocks = all(u.shape[-2] == cfg.M for u in u_means)
-    # a chain of one task takes the factored products, which equal the JAX
-    # package's materialised form at T = 1 (mean = u_mean, scale = u_tril)
-    if L_inv is not None and equal_blocks and (len(u_means) == 1 or form == "factored"):
-        fpost = gpmath.ar_joint_posterior_factored(L, L_inv, u_means, u_trils)
+    with tracing.span("posterior"):
+        theta = sample_hypers(params.kernel, hyper_eps, map_est=cfg.map_est_hypers)
+        z_all, u_means, u_trils, u_tril_t = _concat_chain(params, prev, cfg)
+        if cfg.dkl:
+            Kzz = deep_gram(params.phi, theta, z_all)  # (H, O, S, S), K5
+        else:
+            Kzz = sym_gram(theta, z_all)  # (H, O, S, S), K1 or K2
+        if chain_mask is not None:
+            rm = _row_mask(chain_mask, cfg.M)
+            Kzz = Kzz * (rm[:, None] * rm[None, :]) + torch.diag(1.0 - rm)
+        form = _ar_form()
+        if cfg.solve_via_inverse:
+            L, L_inv = chol_and_inv(gpmath.add_jitter(Kzz, cfg.jitter))
+        else:
+            L, L_inv = gpmath.cholesky(Kzz, cfg.jitter), None
+        equal_blocks = all(u.shape[-2] == cfg.M for u in u_means)
+        # a chain of one task takes the factored products, which equal the JAX
+        # package's materialised form at T = 1 (mean = u_mean, scale = u_tril)
+        if L_inv is not None and equal_blocks and (len(u_means) == 1 or form == "factored"):
+            fpost = gpmath.ar_joint_posterior_factored(L, L_inv, u_means, u_trils)
+            return ChainPosterior(
+                theta=theta, L=L, L_inv=L_inv, mean=None, LS=None, z_all=z_all,
+                u_tril_t=u_tril_t, w_blocks=fpost.w, v_mean=fpost.v,
+            )
+        if L_inv is not None and z_all.shape[-2] >= _FAST_CHAIN_MIN_ROWS:
+            post = gpmath.ar_joint_posterior_fast(L, L_inv, u_means, u_trils)
+        else:
+            post = gpmath.ar_joint_posterior(L, u_means, u_trils, L_inv=L_inv)
         return ChainPosterior(
-            theta=theta, L=L, L_inv=L_inv, mean=None, LS=None, z_all=z_all,
-            u_tril_t=u_tril_t, w_blocks=fpost.w, v_mean=fpost.v,
+            theta=theta, L=L, L_inv=L_inv, mean=post.mean, LS=post.LS, z_all=z_all,
+            u_tril_t=u_tril_t,
         )
-    if L_inv is not None and z_all.shape[-2] >= _FAST_CHAIN_MIN_ROWS:
-        post = gpmath.ar_joint_posterior_fast(L, L_inv, u_means, u_trils)
-    else:
-        post = gpmath.ar_joint_posterior(L, u_means, u_trils, L_inv=L_inv)
-    return ChainPosterior(
-        theta=theta, L=L, L_inv=L_inv, mean=post.mean, LS=post.LS, z_all=z_all,
-        u_tril_t=u_tril_t,
-    )
 
 
 def marginal_diag(cp: ChainPosterior, params: VARGPParams, x: torch.Tensor,
@@ -244,20 +246,21 @@ def marginal_diag(cp: ChainPosterior, params: VARGPParams, x: torch.Tensor,
     DKL, phi(x) is computed once and broadcast over the class heads (the
     JAX package applies phi to x broadcast to (O, B, D): the same values,
     and autograd sums the heads' cotangents alike)."""
-    if cfg.dkl:
-        fx = mlp_apply(params.phi, x)  # (B, P)
-        fx = fx.expand(cfg.out_size, *fx.shape)
-        Kzx = gram(cp.theta, mlp_apply(params.phi, cp.z_all), fx)  # (H, O, S, B), K5
-    else:
-        Kzx = cross_gram(cp.theta, cp.z_all, x)  # (H, O, S, B), K4
-    if chain_mask is not None:
-        Kzx = Kzx * _row_mask(chain_mask, cfg.M)[:, None]
-    kxx_diag = gram_diag(cp.theta)
-    if cp.w_blocks is not None:
-        return gpmath.whitened_marginal_diag_factored(
-            cp.L_inv, cp.v_mean, cp.w_blocks, Kzx, kxx_diag
-        )
-    return gpmath.whitened_marginal_diag(cp.L, cp.mean, cp.LS, Kzx, kxx_diag, L_inv=cp.L_inv)
+    with tracing.span("marginal"):
+        if cfg.dkl:
+            fx = mlp_apply(params.phi, x)  # (B, P)
+            fx = fx.expand(cfg.out_size, *fx.shape)
+            Kzx = gram(cp.theta, mlp_apply(params.phi, cp.z_all), fx)  # (H, O, S, B), K5
+        else:
+            Kzx = cross_gram(cp.theta, cp.z_all, x)  # (H, O, S, B), K4
+        if chain_mask is not None:
+            Kzx = Kzx * _row_mask(chain_mask, cfg.M)[:, None]
+        kxx_diag = gram_diag(cp.theta)
+        if cp.w_blocks is not None:
+            return gpmath.whitened_marginal_diag_factored(
+                cp.L_inv, cp.v_mean, cp.w_blocks, Kzx, kxx_diag
+            )
+        return gpmath.whitened_marginal_diag(cp.L, cp.mean, cp.LS, Kzx, kxx_diag, L_inv=cp.L_inv)
 
 
 def _check_noise(noise: dict, cfg: VARGPConfig, c: int, B: int, with_kl: bool):
@@ -346,7 +349,8 @@ def loss(params: VARGPParams, prev: Sequence[TaskPosterior], prior: RBFPrior,
         dev, *_tensors(params, prev, *prior, x, y, weights, chain_mask, *noise.values())
     )
     out = forward(params, prev, prior, x, noise, cfg, with_kl=True, chain_mask=chain_mask)
-    nll = softmax_loss(out.f_mean, out.f_var, y, noise["lik_eps"], weights=weights)
+    with tracing.span("likelihood"):
+        nll = softmax_loss(out.f_mean, out.f_var, y, noise["lik_eps"], weights=weights)
     return out.kl_hypers, out.kl_u, nll
 
 
@@ -356,12 +360,14 @@ def predict(params: VARGPParams, prev: Sequence[TaskPosterior], x: torch.Tensor,
             chain_mask: torch.Tensor | None = None, device=None) -> torch.Tensor:
     """Predictive class probabilities (B, out_size).  The eval-time MC
     budgets may be overridden; ``noise`` must match them."""
-    dev = resolve_device(device)
-    check_on_device(dev, *_tensors(params, prev, x, chain_mask, *noise.values()))
-    cfg_eval = eval_budget_cfg(cfg, n_f=n_f, n_var_samples=n_var_samples)
-    out = forward(params, prev, None, x, noise, cfg_eval, with_kl=False,
-                  chain_mask=chain_mask)
-    return softmax_predict(out.f_mean, out.f_var, noise["lik_eps"])
+    with tracing.span("predict"):
+        dev = resolve_device(device)
+        check_on_device(dev, *_tensors(params, prev, x, chain_mask, *noise.values()))
+        cfg_eval = eval_budget_cfg(cfg, n_f=n_f, n_var_samples=n_var_samples)
+        out = forward(params, prev, None, x, noise, cfg_eval, with_kl=False,
+                      chain_mask=chain_mask)
+        with tracing.span("likelihood"):
+            return softmax_predict(out.f_mean, out.f_var, noise["lik_eps"])
 
 
 # ---------------------------------------------------------------------------

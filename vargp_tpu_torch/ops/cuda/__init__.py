@@ -8,7 +8,7 @@ it launches its kernel for CUDA tensors, takes its plain PyTorch version
 for CPU tensors, gives shapes alone for fake tensors and refuses any
 other device, and bills its work by a cost function (``build.COSTS``,
 read through ``build.cost``: operations, bytes and precision class).
-``<wrapper>.launches`` counts kernel launches (``rbf_gram.sym_launches`` those of K5's symmetric kernel).  The
+``utils.tracing.LAUNCHES`` counts the launches by launcher symbol.  The
 four Grams run one tensor-core tile, ``csrc/rbf_mma.cuh``; the
 factorisations share ``csrc/chol_tile.cuh``.  ``build`` compiles and loads
 the library.

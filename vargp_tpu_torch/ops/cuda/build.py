@@ -25,6 +25,8 @@ from typing import NamedTuple
 
 import torch
 
+from vargp_tpu_torch.utils import tracing
+
 NAMESPACE = "vargp_torch"
 
 
@@ -237,8 +239,9 @@ def result_dtype(*tensors: torch.Tensor) -> torch.dtype:
 
 
 def launch(name: str, device: torch.device, *args) -> None:
-    """Call one kernel launcher on ``device``'s current PyTorch stream and
-    raise if CUDA refused the launch."""
+    """Call one kernel launcher on ``device``'s current PyTorch stream,
+    raise if CUDA refused the launch, and count it under ``name`` in
+    ``utils.tracing.LAUNCHES``."""
     fn = getattr(library(), name)
     with torch.cuda.device(device):
         status = fn(*args, torch.cuda.current_stream(device).cuda_stream)
@@ -246,6 +249,7 @@ def launch(name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{name}: launch refused") from torch.cuda.CudaError(
             status
         )
+    tracing.LAUNCHES[name] += 1
 
 
 if __name__ == "__main__":

@@ -63,7 +63,6 @@ def _cuda(z, x, invs2, gamma2):
         "vargp_cross_gram", z.device, z.data_ptr(), x.data_ptr(), invs2.data_ptr(),
         gamma2.data_ptr(), out.data_ptr(), H, O, M, B, z.shape[-1],
     )
-    cross_gram.launches += 1
     return out
 
 
@@ -81,5 +80,3 @@ def cross_gram(z: torch.Tensor, x: torch.Tensor, invs2: torch.Tensor,
     """K[h, o, i, b] = gamma2[h] exp(-0.5 sum_d invs2[h, d] (z[o,i,d] - x[b,d])^2)."""
     return cross_gram_op(z, x, invs2, gamma2)
 
-
-cross_gram.launches = 0

@@ -107,7 +107,6 @@ def _cuda(sx, sy, gamma2):
     small = sx.shape[-1] <= SMALL_D
     launch("vargp_rbf_gram_small" if small else "vargp_rbf_gram", sx.device, sx.data_ptr(),
            sy.data_ptr(), gamma2.data_ptr(), out.data_ptr(), G, M, N, sx.shape[-1])
-    rbf_gram.launches += 1
     return out
 
 
@@ -134,8 +133,6 @@ def _cuda_sym(sx, gamma2):
     else:
         launch("vargp_rbf_gram_sym", sx.device, sx.data_ptr(), gamma2.data_ptr(),
                out.data_ptr(), G, M, D)
-    rbf_gram.sym_launches += 1
-    rbf_gram.launches += 1
     return out
 
 
@@ -166,6 +163,3 @@ def rbf_gram(sx: torch.Tensor, sy: torch.Tensor, gamma2: torch.Tensor) -> torch.
         return rbf_gram_sym_op(sx, gamma2)
     return rbf_gram_op(sx, sy, gamma2)
 
-
-rbf_gram.launches = 0  # every launch
-rbf_gram.sym_launches = 0  # the symmetric kernel's

@@ -50,6 +50,7 @@ from vargp_tpu_torch.train.optim import (
     tree_unflatten,
 )
 from vargp_tpu_torch.train.stopper import EarlyStopper
+from vargp_tpu_torch.utils import tracing
 
 
 @dataclass(frozen=True)
@@ -172,31 +173,34 @@ def elbo_step(params, opt_state, prev, prior, x, y, w, noise, *,
     over every rank, each class's kl_u over the data ranks, each row's nll
     over the model ranks), each rank differentiates its share, and the
     gradients are summed where their leaves are shared."""
-    leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
-    p = tree_unflatten(params, leaves)
-    with torch.enable_grad():
-        if mesh is None:
-            klh, klu, nll = V.loss(p, prev, prior, x, y, noise, cfg, weights=w,
-                                   chain_mask=chain_mask, device=device)
-            scale = n_train / torch.clamp(torch.sum(w), min=1.0)
-            total = objective = beta * klh + klu + scale * nll
-        else:
-            klh, klu, nll = _sharded_loss(p, prev, prior, x, y, w, noise, cfg, chain_mask,
-                                          resolve_device(device), mesh)
-            w_sum = mesh.all_sum(torch.sum(w), "data", "sum w")
-            scale = n_train / torch.clamp(w_sum, min=1.0)
-            dp, mp = mesh.shape
-            objective = beta * klh / (dp * mp) + klu / dp + scale * nll / mp
-    grads = torch.autograd.grad(objective, leaves, allow_unused=True)
-    # a leaf the loss does not read (log_logvar under MAP) has gradient 0
-    grads = [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)]
-    if mesh is not None:
-        grads = mesh.sum_gradients(grads, params, cfg.out_size)
-        klu = mesh.all_sum(klu, "model", "sum kl_u")
-        nll = mesh.all_sum(nll, "data", "sum nll")
-        total = beta * klh + klu + scale * nll
-    params, opt_state = opt.update(grads, opt_state, params)
-    return params, opt_state, total.detach(), (klh.detach(), klu.detach(), nll.detach())
+    with tracing.span("elbo_step"):
+        leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+        p = tree_unflatten(params, leaves)
+        with torch.enable_grad():
+            if mesh is None:
+                klh, klu, nll = V.loss(p, prev, prior, x, y, noise, cfg, weights=w,
+                                       chain_mask=chain_mask, device=device)
+                scale = n_train / torch.clamp(torch.sum(w), min=1.0)
+                total = objective = beta * klh + klu + scale * nll
+            else:
+                klh, klu, nll = _sharded_loss(p, prev, prior, x, y, w, noise, cfg, chain_mask,
+                                              resolve_device(device), mesh)
+                w_sum = mesh.all_sum(torch.sum(w), "data", "sum w")
+                scale = n_train / torch.clamp(w_sum, min=1.0)
+                dp, mp = mesh.shape
+                objective = beta * klh / (dp * mp) + klu / dp + scale * nll / mp
+        with tracing.span("backward"):
+            grads = torch.autograd.grad(objective, leaves, allow_unused=True)
+        # a leaf the loss does not read (log_logvar under MAP) has gradient 0
+        grads = [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)]
+        if mesh is not None:
+            grads = mesh.sum_gradients(grads, params, cfg.out_size)
+            klu = mesh.all_sum(klu, "model", "sum kl_u")
+            nll = mesh.all_sum(nll, "data", "sum nll")
+            total = beta * klh + klu + scale * nll
+        with tracing.span("update"):
+            params, opt_state = opt.update(grads, opt_state, params)
+        return params, opt_state, total.detach(), (klh.detach(), klu.detach(), nll.detach())
 
 
 def block_draws(gen: torch.Generator, n_pad: int, batch_size: int, n_epochs: int,
@@ -231,15 +235,16 @@ def train_block(params, opt_state, prev, prior, chain_mask, n_train, data_x, dat
             raise ValueError(f"generator on {gen.device}, the block runs on {dev}")
         draws = block_draws(gen, n_pad, batch_size, n_epochs, cfg, len(prev))
     losses, pieces = [], []
-    for idx, noise in draws:
-        idx = idx[rows]
-        params, opt_state, loss, aux = elbo_step(
-            params, opt_state, prev, prior, data_x[idx], data_y[idx], data_w[idx], noise,
-            cfg=cfg, opt=opt, beta=beta, n_train=n_train, chain_mask=chain_mask, device=dev,
-            mesh=mesh,
-        )
-        losses.append(loss)
-        pieces.append(torch.stack(aux))
+    with tracing.span("train_block"):
+        for idx, noise in draws:
+            idx = idx[rows]
+            params, opt_state, loss, aux = elbo_step(
+                params, opt_state, prev, prior, data_x[idx], data_y[idx], data_w[idx], noise,
+                cfg=cfg, opt=opt, beta=beta, n_train=n_train, chain_mask=chain_mask,
+                device=dev, mesh=mesh,
+            )
+            losses.append(loss)
+            pieces.append(torch.stack(aux))
     return params, opt_state, torch.stack(losses), torch.stack(pieces)
 
 

@@ -12,19 +12,24 @@ calls), as the JAX version counts the device's "XLA Ops" row alone.
 ``profile_fn`` times ``iters`` calls of a function after a warm-up; on the
 CPU (``device="cpu"``) it profiles the CPU ops instead, by their own time
 (a parent op's time less its children's), which is what the CPU tests run.
+It also sums the port's spans (``utils.tracing``) recorded in the trace,
+with the device's events each launched (:func:`span_summary`).
 """
 
+import bisect
 import collections
 import glob
 import gzip
 import json
 import os
 import tempfile
+import time
 from contextlib import contextmanager
 
 import torch
 
 from vargp_tpu_torch.ops.device import resolve_device
+from vargp_tpu_torch.utils import tracing
 
 # the chrome trace's categories of device work: kernels, copies, fills
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -138,6 +143,48 @@ def parse_trace(path: str, categories=DEVICE_CATEGORIES, own_time: bool = False,
     return ms
 
 
+def launch_times(prof) -> list:
+    """(launch ns, device ns) of each kernel, copy and fill in a stopped
+    ``torch.profiler.profile``: each device event at the start of the
+    CUDA runtime or driver call (a host event named ``cu...``) that
+    launched it, the two sharing a correlation id, on the clock of
+    ``time.time_ns``."""
+    from torch.autograd import DeviceType
+
+    events = list(prof.profiler.kineto_results.events())
+    calls = {e.correlation_id(): e.start_ns() for e in events
+             if e.device_type() == DeviceType.CPU and e.name().startswith("cu")}
+    return [(calls[e.correlation_id()], e.end_ns() - e.start_ns()) for e in events
+            if e.device_type() == DeviceType.CUDA and e.correlation_id() in calls]
+
+
+def span_summary(spans: list, launches: list, calls: int) -> dict:
+    """Per span name, per call of ``calls``: ``host_ms``, the spans'
+    duration; ``self_ms``, that less the time of the spans nested in them;
+    ``device_ms`` and ``events``, the device's events launched while the
+    span was the innermost open one (``launches``: (launch ns, device ns)
+    each)."""
+    ordered = sorted(spans, key=lambda s: s.start)
+    starts = [s.start for s in ordered]
+    by_id = {s.id: s for s in spans}
+    out = {s.name: dict(host_ms=0.0, self_ms=0.0, device_ms=0.0, events=0.0) for s in spans}
+    for s in spans:
+        ms = (s.end - s.start) / 1e6 / calls
+        out[s.name]["host_ms"] += ms
+        out[s.name]["self_ms"] += ms
+        if s.parent in by_id:
+            out[by_id[s.parent].name]["self_ms"] -= ms
+    for t, ns in launches:
+        # spans nest: the latest-starting one still open at t is innermost
+        i = bisect.bisect_right(starts, t) - 1
+        while i >= 0 and ordered[i].end < t:
+            i -= 1
+        if i >= 0:
+            out[ordered[i].name]["device_ms"] += ns / 1e6 / calls
+            out[ordered[i].name]["events"] += 1 / calls
+    return out
+
+
 def profile_fn(fn, *args, iters: int = 10, top: int = 15, device=None) -> dict:
     """Call ``fn(*args)`` once to warm up, then ``iters`` times under
     ``device_trace``.  Returns a dict: ``top``, the ``top`` ops by ms per
@@ -145,14 +192,17 @@ def profile_fn(fn, *args, iters: int = 10, top: int = 15, device=None) -> dict:
     own time on the CPU); ``events_per_call``, the kernel events traced per
     call on the card (the CPU ops' events on the CPU), and
     ``launches_per_call`` the events per call of each op name;
-    ``busy_ms``, the summed ms per call."""
+    ``busy_ms``, the summed ms per call; ``spans``, :func:`span_summary`
+    of the port's spans in the trace (no device events on the CPU)."""
     dev = resolve_device(device)
     fn(*args)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+    t0 = time.time_ns()
     with device_trace(device=dev) as tr:
         for _ in range(iters):
             fn(*args)
+    spans = [s for s in tracing.spans() if s.start >= t0]
     ms = tr["events"]
     n = collections.Counter(e["name"] for e in tr["trace"])
     kernels = sum(e["cat"] == "kernel" for e in tr["trace"]) if dev.type == "cuda" else n.total()
@@ -162,4 +212,6 @@ def profile_fn(fn, *args, iters: int = 10, top: int = 15, device=None) -> dict:
         "events_per_call": kernels / iters,
         "launches_per_call": {k: v / iters for k, v in n.items()},
         "busy_ms": sum(ms.values()) / iters,
+        "spans": span_summary(spans, launch_times(tr["profile"]) if dev.type == "cuda" else [],
+                              iters),
     }
