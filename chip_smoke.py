@@ -62,7 +62,10 @@ result) on a failure:
    (bitwise), then its 5 x 5 accuracy and entropy matrices over the
    synthetic Split-MNIST test splits (10,000 rows, made by numpy) at the
    notebooks' budgets (n_f=50, n_var_samples=20), with one cell's first
-   batch replayed on the CPU from the same draws;
+   batch replayed on the CPU from the same draws; a cell's noise is
+   shared by its batches, so ``predict`` builds one posterior a cell and
+   reuses it for the cell's other batches (``utils.tracing.POSTERIOR``'s
+   builds and reuses printed and checked);
 8. the protocol: ``vargp_run.split_mnist``, the drivers' entry point,
    for two tasks of Split-MNIST's chain padded to 5 tasks (A's step),
    20 epochs each with an evaluation every 10, on the synthetic surrogate
@@ -125,7 +128,8 @@ result) on a failure:
    G = 200, each beside ``torch.linalg.cholesky`` on the same view; K6
    beside the default blocked factorisation, K7 beside
    ``torch.linalg.cholesky``, all four at one panel);
-   ``loss`` and ``predict`` end to end; the
+   ``loss`` and ``predict`` end to end (``predict`` reusing its
+   posterior, and with the posterior built each call); the
    forward, forward + backward and whole step of training at A, B and C,
    and the step under the solve and fused routes (CUDA events); the
    default step's kernel launches and device-busy time under
@@ -1132,6 +1136,7 @@ def check_analysis(dev):
     from vargp_tpu_torch.experiments import analysis as A
     from vargp_tpu_torch.models import vargp as V
     from vargp_tpu_torch.train.optim import tree_leaves
+    from vargp_tpu_torch.utils import tracing
     from vargp_tpu_torch.utils.checkpoint import load_chain, save_chain
     from vargp_tpu_torch.utils.convert import params_from_numpy
 
@@ -1154,6 +1159,7 @@ def check_analysis(dev):
     t_data = time.perf_counter() - t0
     a = ANALYSIS
     reset_counts()
+    tracing.POSTERIOR.clear()
     t0 = time.perf_counter()
     acc, ent = A.accuracy_entropy_matrices(chain, cfg, test_sets, seed=a["seed"], n_f=a["n_f"],
                                            n_var_samples=a["n_var_samples"],
@@ -1161,18 +1167,27 @@ def check_analysis(dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
+    posteriors = dict(tracing.POSTERIOR)
     n_batches = sum(-(-len(ts) // a["batch_size"]) for ts in test_sets) * T
+    n_cells = T * len(test_sets)
     print(f"  test splits: {[len(ts) for ts in test_sets]} rows, made in {t_data:.3f} s")
     print(f"  accuracy matrix: {np.round(acc, 4).tolist()}")
     print(f"  entropy matrix: {np.round(ent, 4).tolist()}")
     print(f"  analysis wall time {wall:.3f} s for {n_batches} predict calls at H={a['n_var_samples']}, "
           f"n_f={a['n_f']}; launches {launches}")
+    print(f"  predict's chain posteriors: {posteriors.get('build', 0)} built, "
+          f"{posteriors.get('reuse', 0)} reused ({n_cells} cells, one noise draw a cell)")
+    if posteriors != {"build": n_cells, "reuse": n_batches - n_cells}:
+        raise AssertionError(f"analysis: posteriors {posteriors}, expected {n_cells} builds and "
+                             f"{n_batches - n_cells} reuses")
     if acc.shape != (T, T) or not (np.isfinite(acc).all() and np.isfinite(ent).all()):
         raise AssertionError("analysis: matrices of the wrong shape or not finite")
     if acc.min() < 0 or acc.max() > 1 or ent.min() < 0 or ent.max() > 1 + 1e-6:
         raise AssertionError("analysis: accuracy or normalised entropy outside [0, 1]")
     want = {k: 0 for k in counters()}
-    want.update(rbf_gram=2 * n_batches, rbf_gram_sym=n_batches, diag_chol=3 * n_batches)
+    # each cell's posterior builds K_zz (K5, symmetric) and its factor (K3
+    # three times) once; each batch launches K_zx (K5)
+    want.update(rbf_gram=n_batches + n_cells, rbf_gram_sym=n_cells, diag_chol=3 * n_cells)
     if launches != want:
         raise AssertionError(f"analysis: launches {launches}, expected {want}")
 
@@ -2659,7 +2674,8 @@ def _check_export(dev, route, tmp, want, cfg, cfg_eval, params, prev, x, noise) 
         E.export_predictor(params, prev, cfg, B, path, n_f=n_f, n_var_samples=n_var, device=dev)
         export_s = time.perf_counter() - t0
 
-        def eager():
+        def eager():  # the posterior built each call, as the loaded program builds it
+            V.clear_posterior_cache()
             with torch.no_grad():
                 return V.predict(params, prev, x, noise, cfg_eval, device=dev)
 
@@ -3381,6 +3397,8 @@ def main() -> int:
         for label, fn in (
             ("loss", lambda: V.loss(params, prev, prior, xx, yy, noise, cfg)),
             ("predict", lambda: V.predict(params, prev, xx, pnoise, cfg)),
+            ("predict, posterior built each call",
+             lambda: (V.clear_posterior_cache(), V.predict(params, prev, xx, pnoise, cfg))),
         ):
             for _ in range(2):
                 fn()

@@ -4,7 +4,9 @@
     python3 scripts/profile_torch_forward.py
 
 Runs ``loss`` and ``predict`` of the flagship model (the inputs of
-``chip_smoke.py``) under ``torch.profiler`` after a warm-up, and prints:
+``chip_smoke.py``) under ``torch.profiler`` after a warm-up (``predict``
+twice: reusing the posterior its first call built, as a pass over a split
+does, and with the posterior built each call), and prints:
 the wall time per call, the device-busy time per call (the sum of kernel
 times; launches do not overlap on one stream), the device idle share, the
 number of kernel launches per call, and, for each call, the kernels that
@@ -40,6 +42,8 @@ def main() -> int:
     calls = {
         "loss": lambda: V.loss(params, prev, prior, x, y, noise, cfg),
         "predict": lambda: V.predict(params, prev, x, pnoise, cfg),
+        "predict_built": lambda: (V.clear_posterior_cache(),
+                                  V.predict(params, prev, x, pnoise, cfg))[1],
     }
     summary = {}
     for name, fn in calls.items():

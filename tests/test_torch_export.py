@@ -4,7 +4,9 @@ shared small case (3 classes, M = 64, D = 16, B = 32; a 2-task chain, S =
 loaded back and called on the same noise.
 
 - The loaded program's probabilities equal eager ``predict``'s bit for
-  bit: the graph runs the same operators on the same inputs.
+  bit: the graph runs the same operators on the same inputs, called twice
+  with the same noise, and so does eager ``predict`` reusing its
+  posterior; the trace keeps no posterior.
 - They match the JAX package's ``predict`` on the JAX draws replayed, to
   the parity suite's limits: 1e-6 absolute on the plain model
   (``tests/test_torch_vargp.py``), 1e-5 under the deep kernel
@@ -25,6 +27,7 @@ from vargp_tpu.models import vargp as JV
 from vargp_tpu_torch.models import vargp as TV
 from vargp_tpu_torch.utils import convert
 from vargp_tpu_torch.utils import export as E
+from vargp_tpu_torch.utils import tracing
 
 ATOL = {False: 1e-6, True: 1e-5}  # plain, deep kernel
 NODES = {
@@ -57,17 +60,24 @@ def test_exported_predictor_round_trip(tmp_path, monkeypatch, model, route):
     tp, tprev, _ = convert.params_from_numpy(np_tree(m["params"]), np_tree(m["prev"]),
                                              device="cpu")
     x = torch.tensor(np.asarray(m["x"]))
+    TV.clear_posterior_cache()
     path = E.export_predictor(tp, tprev, m["tcfg"], d["B"], str(tmp_path / "p.pt2"),
                               n_f=d["N_F"], n_var_samples=d["H"], device="cpu")
+    assert TV._entry is None  # the trace neither kept nor reused a posterior
     monkeypatch.delenv("VARGP_TPU_CHOLINV")  # the saved program keeps its route
     pred = E.load_predictor(path, device="cpu")
     assert _graph_ops(pred.program) == NODES[(model, route)]
     assert pred.meta["noise_shapes"] == {k: list(v.shape) for k, v in noise.items()}
     got = pred(x, noise)
+    assert torch.equal(pred(x, noise), got)  # called twice with the same noise
     monkeypatch.setenv("VARGP_TPU_CHOLINV", route)
+    reuses = tracing.POSTERIOR["reuse"]
     with torch.no_grad():
         eager = TV.predict(tp, tprev, x, noise, m["tcfg"], device="cpu")
+        again = TV.predict(tp, tprev, x, noise, m["tcfg"], device="cpu")
+    assert tracing.POSTERIOR["reuse"] == reuses + 1  # the second call reused the first's
     assert torch.equal(got, eager)
+    assert torch.equal(again, eager)
     assert got.shape == (d["B"], d["O"])
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL[dkl])
 

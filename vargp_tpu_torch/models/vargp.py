@@ -24,8 +24,14 @@ Routes through the chain's factorisation, as in the JAX package:
 or the materialised one under ``VARGP_TPU_AR_FORM=materialized``;
 ``solve_via_inverse=False`` factors it alone (``gpmath.cholesky``, K7),
 builds the materialised posterior and solves against the factor.
+
+``predict`` keeps the last ``ChainPosterior`` it built and reuses it while
+the tensors it was built from are the same unchanged objects (see
+``predict``); ``clear_posterior_cache`` drops it.
 """
 
+import os
+import weakref
 from dataclasses import dataclass, replace
 from typing import NamedTuple, Sequence
 
@@ -280,15 +286,22 @@ def _check_noise(noise: dict, cfg: VARGPConfig, c: int, B: int, with_kl: bool):
             )
 
 
+def _check_inputs(prev, x: torch.Tensor, noise: dict, cfg: VARGPConfig, with_kl: bool) -> int:
+    """Refuse an unported config or noise of the wrong shapes; returns the
+    chain's prefix rows c."""
+    _check_supported(cfg)
+    c = len(prev) * cfg.M
+    _check_noise(noise, cfg, c, x.shape[0], with_kl)
+    return c
+
+
 def forward(params: VARGPParams, prev: Sequence[TaskPosterior],
             prior: RBFPrior | None, x: torch.Tensor, noise: dict,
             cfg: VARGPConfig, *, with_kl: bool,
             chain_mask: torch.Tensor | None = None) -> ForwardResult:
     """One ELBO forward pass: the diagonal predictive moments per hyper
     sample and, when ``with_kl``, the two KL terms."""
-    _check_supported(cfg)
-    c = len(prev) * cfg.M
-    _check_noise(noise, cfg, c, x.shape[0], with_kl)
+    c = _check_inputs(prev, x, noise, cfg, with_kl)
     cp = build_posterior(params, prev, noise["hyper_eps"], cfg, chain_mask=chain_mask)
     f_mean, f_var = marginal_diag(cp, params, x, cfg, chain_mask=chain_mask)
     if not with_kl:
@@ -359,15 +372,89 @@ def predict(params: VARGPParams, prev: Sequence[TaskPosterior], x: torch.Tensor,
             n_var_samples: int | None = None,
             chain_mask: torch.Tensor | None = None, device=None) -> torch.Tensor:
     """Predictive class probabilities (B, out_size).  The eval-time MC
-    budgets may be overridden; ``noise`` must match them."""
+    budgets may be overridden; ``noise`` must match them.
+
+    The chain posterior depends on ``params``, ``prev``,
+    ``noise["hyper_eps"]`` and ``chain_mask`` alone, not on ``x``, so a
+    caller that passes the same noise for every batch of a split (the
+    analysis does) shares one posterior among the batches: ``predict``
+    keeps the last one it built and reuses it while every tensor it was
+    built from is the same object at the same ``_version``, under the same
+    evaluation config, device, route knobs and float32 matmul precision.
+    Reused or built anew, the probabilities are bitwise the same.  The
+    ``posterior`` span opens only around a build;
+    ``utils.tracing.POSTERIOR`` counts each call's ``build`` or ``reuse``.
+    A write that bypasses the version counter (through ``.data`` or a
+    numpy view) is not seen: call :func:`clear_posterior_cache` after one."""
     with tracing.span("predict"):
         dev = resolve_device(device)
         check_on_device(dev, *_tensors(params, prev, x, chain_mask, *noise.values()))
         cfg_eval = eval_budget_cfg(cfg, n_f=n_f, n_var_samples=n_var_samples)
-        out = forward(params, prev, None, x, noise, cfg_eval, with_kl=False,
-                      chain_mask=chain_mask)
+        _check_inputs(prev, x, noise, cfg_eval, with_kl=False)
+        cp = _reused_posterior(params, prev, noise["hyper_eps"], cfg_eval, chain_mask, dev)
+        f_mean, f_var = marginal_diag(cp, params, x, cfg_eval, chain_mask=chain_mask)
         with tracing.span("likelihood"):
-            return softmax_predict(out.f_mean, out.f_var, noise["lik_eps"])
+            return softmax_predict(f_mean, f_var, noise["lik_eps"])
+
+
+# ---------------------------------------------------------------------------
+# predict's posterior memo: one entry, the last posterior built
+# ---------------------------------------------------------------------------
+
+# the environment knobs that choose the posterior's route
+_ROUTE_KNOBS = ("VARGP_TPU_CHOLINV", "VARGP_TPU_AR_FORM")
+
+
+class _Entry(NamedTuple):
+    refs: tuple  # weakref.ref of each key tensor, in _tensors' order
+    versions: tuple  # each key tensor's _version at the build
+    static: tuple  # the config, device, route knobs and matmul precision
+    cp: ChainPosterior
+
+
+_entry: _Entry | None = None
+
+
+def clear_posterior_cache() -> None:
+    """Drop the posterior ``predict`` keeps, so that its next call builds."""
+    global _entry
+    _entry = None
+
+
+def _drop(ref) -> None:
+    """A key tensor was freed: drop its entry (and the posterior's memory)
+    unless a newer entry has replaced it."""
+    global _entry
+    if _entry is not None and any(r is ref for r in _entry.refs):
+        _entry = None
+
+
+def _reused_posterior(params, prev, hyper_eps, cfg, chain_mask, dev) -> ChainPosterior:
+    """``build_posterior``'s result, reused from the last call when its
+    inputs are the same unchanged tensors.  Built and not kept while
+    autograd records a key tensor, while ``torch.compile`` or
+    ``torch.export`` traces, or for an inference tensor (which has no
+    version counter)."""
+    global _entry
+    tensors = _tensors(params, prev, hyper_eps, chain_mask)
+    grad = torch.is_grad_enabled()
+    if torch.compiler.is_compiling() or any(
+            t.is_inference() or (grad and t.requires_grad) for t in tensors):
+        tracing.POSTERIOR["build"] += 1
+        return build_posterior(params, prev, hyper_eps, cfg, chain_mask=chain_mask)
+    static = (cfg, dev, *(os.environ.get(k) for k in _ROUTE_KNOBS),
+              torch.get_float32_matmul_precision())
+    versions = tuple(t._version for t in tensors)
+    e = _entry
+    if (e is not None and e.static == static and e.versions == versions
+            and all(r() is t for r, t in zip(e.refs, tensors))):
+        tracing.POSTERIOR["reuse"] += 1
+        return e.cp
+    _entry = None  # the old posterior's memory is free before the new one is built
+    cp = build_posterior(params, prev, hyper_eps, cfg, chain_mask=chain_mask)
+    _entry = _Entry(tuple(weakref.ref(t, _drop) for t in tensors), versions, static, cp)
+    tracing.POSTERIOR["build"] += 1
+    return cp
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,7 @@ Spans mark the layer boundaries of a ``predict`` call and an ELBO step:
                    time of a call
   ``posterior``    ``build_posterior``: the hyper-sample draw, the Gram
                    K_zz, its factor and inverse, the factored posterior
+                   (in ``predict`` only on a call that builds it)
   ``marginal``     ``marginal_diag``: K_zx and the diagonal marginal
   ``likelihood``   ``softmax_predict`` in ``predict``, ``softmax_loss`` in
                    ``loss``
@@ -36,6 +37,12 @@ process are opened and closed on one thread.
 ``LAUNCHES`` counts the hand-written kernels' launches by their C
 launcher's symbol (``vargp_sym_gram``, ...), always, one per successful
 launch in ``ops.cuda.build.launch``.
+
+``POSTERIOR`` counts, always, each ``models.vargp.predict`` call's chain
+posterior: ``build`` when the call built it, ``reuse`` when it reused the
+one the last build left (the same unchanged inputs).  The ``posterior``
+span opens only around a build, so a trace's ``posterior`` time is the
+builds' and ``POSTERIOR`` gives the share of calls that built.
 """
 
 import collections
@@ -53,6 +60,8 @@ CAPACITY = 1 << 16
 
 # launcher symbol -> successful launches, in this process
 LAUNCHES = collections.Counter()
+# "build" / "reuse" -> predict calls that built / reused the chain posterior
+POSTERIOR = collections.Counter()
 
 
 class Span(NamedTuple):
