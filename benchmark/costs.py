@@ -12,11 +12,14 @@ change to the program cannot change them:
   into the least time the card could take.
 - ``train_step_flops`` / ``predict_call_flops``: the model FLOPs of one
   ELBO training step and of one ``predict`` call, term by term from the
-  ELBO's and the predictive's mathematics (``model_terms``).  Each product
-  counts 2mnk, a symmetric Gram its distinct pairs, a Cholesky factor
-  n^3/3, a triangular solve n^2 k; elementwise work (the softmax's Monte
-  Carlo terms among it) and recomputation count nothing; a training step
-  counts its forward three times (the backward twice the forward).
+  ELBO's and the predictive's mathematics (``posterior_terms``,
+  ``call_terms``, ``model_terms``).  Each product counts 2mnk, a symmetric
+  Gram its distinct pairs, a Cholesky factor n^3/3, a triangular solve
+  n^2 k; elementwise work (the softmax's Monte Carlo terms among it) and
+  recomputation count nothing; a training step counts its forward three
+  times (the backward twice the forward).  The chain posterior depends on
+  the chain and the hyper draw alone, not on the batch: a ``predict``
+  call counts it at the share of calls that draw anew.
 
 The peak is 165 TFLOP/s, NVIDIA's 495 TF32 TFLOP/s of one H100 SXM over
 three passes: the rate of f32-accurate products on the tensor cores, the
@@ -96,44 +99,62 @@ def bound_s(flops: float, nbytes: float) -> float:
     return max(flops / PEAK_FLOPS, nbytes / PEAK_BYTES_PER_S)
 
 
-def model_terms(cfg: dict, H: int, B: int, with_kl: bool) -> dict:
-    """The forward's model FLOPs, term by term, at a chain of ``cfg``'s
-    tasks (T = task + 1 blocks of M rows a class, S = T M), H hyper
-    samples and B rows."""
+def _sizes(cfg: dict, H: int) -> tuple:
     O, M, D = (cfg["model"][k] for k in ("out_size", "M", "in_size"))
     T = cfg["task"] + 1
-    S, c = T * M, (T - 1) * M
-    G = H * O
-    terms = {
+    return H * O, T, M, T * M, D
+
+
+def posterior_terms(cfg: dict, H: int) -> dict:
+    """The chain posterior's model FLOPs, term by term, at a chain of
+    ``cfg``'s tasks (T = task + 1 blocks of M rows a class, S = T M) and H
+    hyper samples: what depends on the chain and the draw, not the rows."""
+    G, T, M, S, D = _sizes(cfg, H)
+    return {
         "K_zz, a symmetric Gram (S^2 D a matrix)": G * S * S * D,
-        "K_zx, a cross Gram (2 S B D)": 2 * G * S * B * D,
         "chol(K_zz) (S^3 / 3)": G * S ** 3 // 3,
-        "L^-1 K_zx, a triangular solve (S^2 B)": G * S * S * B,
         "each task's whitened mean, L_tt^-1 m_t (T M^2)": G * T * M * M,
         "each task's whitened scale, L_tt^-1 U_t (T M^3)": G * T * M ** 3,
+    }
+
+
+def call_terms(cfg: dict, H: int, B: int) -> dict:
+    """The marginal's model FLOPs on B rows, term by term, given the chain
+    posterior."""
+    G, T, M, S, D = _sizes(cfg, H)
+    return {
+        "K_zx, a cross Gram (2 S B D)": 2 * G * S * B * D,
+        "L^-1 K_zx, a triangular solve (S^2 B)": G * S * S * B,
         "f_mean = v^T W (2 S B)": 2 * G * S * B,
         "C_t = w_t^T W_t (2 T M^2 B)": 2 * G * T * M * M * B,
     }
-    if with_kl:
-        n_v = cfg["model"]["n_var_samples"]
-        terms.update({
-            "prefix sample, w_t eps_t (2 n_v (T-1) M^2)": 2 * n_v * G * c * M,
-            "prior mean L21 w (2 n_v M c)": 2 * n_v * G * M * c,
-            "KL trace, L22^-1 U (M^3)": G * M ** 3,
-            "KL mean, L22^-1 (mu_p - mu_q) (n_v M^2)": n_v * G * M * M,
-        })
-    return terms
+
+
+def model_terms(cfg: dict, H: int, B: int) -> dict:
+    """A training forward's model FLOPs, term by term: the chain
+    posterior, the marginal on B rows and the KL's terms."""
+    G, _, M, S, _ = _sizes(cfg, H)
+    c = S - M
+    n_v = cfg["model"]["n_var_samples"]
+    return dict(posterior_terms(cfg, H), **call_terms(cfg, H, B), **{
+        "prefix sample, w_t eps_t (2 n_v (T-1) M^2)": 2 * n_v * G * c * M,
+        "prior mean L21 w (2 n_v M c)": 2 * n_v * G * M * c,
+        "KL trace, L22^-1 U (M^3)": G * M ** 3,
+        "KL mean, L22^-1 (mu_p - mu_q) (n_v M^2)": n_v * G * M * M,
+    })
 
 
 def train_step_flops(cfg: dict, batch_size: int) -> int:
     """One ELBO step: the forward with its KL at the configuration's hyper
     samples, three times (forward and a backward of twice its products)."""
-    return 3 * sum(model_terms(cfg, cfg["model"]["n_var_samples"], batch_size,
-                               with_kl=True).values())
+    return 3 * sum(model_terms(cfg, cfg["model"]["n_var_samples"], batch_size).values())
 
 
-def predict_call_flops(cfg: dict, n_var_samples: int, batch_size: int) -> int:
-    """One ``predict`` call: the posterior and the marginal at the
-    evaluation's hyper samples (the softmax's Monte Carlo terms are
-    elementwise and count nothing)."""
-    return sum(model_terms(cfg, n_var_samples, batch_size, with_kl=False).values())
+def predict_call_flops(cfg: dict, n_var_samples: int, batch_size: int,
+                       builds_per_call: float) -> float:
+    """One ``predict`` call at the evaluation's hyper samples: the marginal
+    on its batch, and the chain posterior at ``builds_per_call``, the share
+    of calls that need a new one (1: every call draws anew).  The
+    softmax's Monte Carlo terms are elementwise and count nothing."""
+    return (sum(call_terms(cfg, n_var_samples, batch_size).values())
+            + builds_per_call * sum(posterior_terms(cfg, n_var_samples).values()))

@@ -4,7 +4,10 @@ analysis evaluates, taken in turn; a split's last batch is padded with
 zero rows, and only real rows count.  Each pass over a split draws one set
 of noise for all its batches.  Rows are held on the host and copied to
 the card with each call; one client calls one batch at a time, and a call
-is timed until its probabilities are on the host.
+is timed until its probabilities are on the host.  The window ends with
+the pass in which its seconds run out, so the share of calls that draw
+new noise, and build the chain posterior anew, is the traffic's and not
+the clock's.
 
 The mix's keys: ``batch_size``, ``n_var_samples``, ``n_f``,
 ``warmup_calls``, ``trace_calls``, ``sample_calls``,
@@ -24,10 +27,14 @@ class Mix:
     def __init__(self, cfg: dict, mix: dict, seed: int, device: torch.device):
         self.cfg, self.mix, self.seed, self.dev = cfg, mix, seed, device
 
-    def unit_flops(self) -> int:
-        """The model FLOPs of one ``predict`` call."""
-        return costs.predict_call_flops(self.cfg, self.mix["n_var_samples"],
-                                        self.mix["batch_size"])
+    def unit_flops(self) -> float:
+        """The model FLOPs of one ``predict`` call, with the chain posterior
+        once a pass: a pass's calls share its noise, and with it the
+        hyper draw the posterior depends on."""
+        B = self.mix["batch_size"]
+        per_pass = [-(-n // B) for n in self.cfg["test_splits"]["rows"]]
+        return costs.predict_call_flops(self.cfg, self.mix["n_var_samples"], B,
+                                        len(per_pass) / sum(per_pass))
 
     def _splits(self, gen):
         """The test splits on the host, each (batches, B, D) with its real
@@ -84,7 +91,9 @@ class Mix:
 
     def _calls(self, stop):
         """Call batch after batch, split after split, until ``stop(calls
-        made, seconds since the first call)``; returns the real rows."""
+        made, seconds since the first call, whether the call ended a
+        pass)``; returns the real rows and the seconds from the first
+        call's start to the last's end."""
         rows, t0 = 0, time.perf_counter()
         n0 = len(self.calls)
         while True:
@@ -99,24 +108,29 @@ class Mix:
                 te = time.perf_counter()
                 self.calls.append((k, s, b, te - tc, out))
                 rows += min(n - b * len(xb), len(xb))
-                if stop(len(self.calls) - n0, te - t0):
+                if stop(len(self.calls) - n0, te - t0, b == len(batches) - 1):
                     return rows, te - t0
 
     def window(self, seconds: float) -> dict:
-        rows, took = self._calls(lambda n, t: t >= seconds)
+        rows, took = self._calls(lambda n, t, end: end and t >= seconds)
         self.n_window = len(self.calls)
         lat = np.array([c[3] for c in self.calls]) * 1e3
         failed = sum(not np.all(np.isfinite(c[4])) for c in self.calls)
         self.rate = len(self.calls) / took
         q = np.percentile(lat, [0, 5, 25, 50, 75, 95, 99, 100]).round(3).tolist()
+        first = np.array([c[2] == 0 for c in self.calls])
+        apart = "; ".join(f"{name}: {len(x)}, median {np.median(x):.3f} ms, max {x.max():.3f} ms"
+                          for name, x in (("first calls of a pass", lat[first]),
+                                          ("the others", lat[~first])) if len(x))
         return {"attempted": len(self.calls), "failed": int(failed),
                 "metrics": {"predict_rows_per_s": rows / took,
-                            "predict_ms_p95": float(np.percentile(lat, 95))},
+                            "predict_ms_p95": float(np.percentile(lat, 95)),
+                            "predict_ms_p99": float(np.percentile(lat, 99))},
                 "detail": f"{len(self.calls)} calls, {rows} rows, {self.passes} passes in "
-                          f"{took:.3f} s; ms a call at 0 5 25 50 75 95 99 100 %: {q}"}
+                          f"{took:.3f} s; ms a call at 0 5 25 50 75 95 99 100 %: {q}; {apart}"}
 
     def traced(self) -> int:
-        self._calls(lambda n, t: n >= self.mix["trace_calls"])
+        self._calls(lambda n, t, end: n >= self.mix["trace_calls"])
         return self.mix["trace_calls"]
 
     def release(self):

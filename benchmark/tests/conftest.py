@@ -42,7 +42,8 @@ def tiny_cell():
 
     def make(kind: str):
         e2e = {"train": ["train_steps_per_s"],
-               "predict": ["predict_rows_per_s.tiny", "predict_ms_p95.tiny"]}
+               "predict": ["predict_rows_per_s.tiny", "predict_ms_p95.tiny",
+                           "predict_ms_p99.tiny"]}
         return C.Cell(name=f"tiny.{kind}", chips=1, config=dict(TINY), traffic=traffic(kind),
                       limits=dict(TINY_LIMITS[kind]), root=ROOT,
                       end_to_end=[{"name": n, "unit": "u"} for n in e2e[kind] + ["setup_s"]])

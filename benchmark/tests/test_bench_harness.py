@@ -6,12 +6,14 @@ import os
 import shutil
 import subprocess
 import sys
+import types
 
+import numpy as np
 import pytest
 import torch
 
 from benchmark import cell as C
-from benchmark import costs, readers, trace
+from benchmark import costs, readers, spans, trace
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 RESULT_KEYS = ["correct", "attempted", "failed", "metrics", "device", "compared"]
@@ -34,7 +36,8 @@ def test_every_cell_is_found_by_name(name):
 
 
 READERS = (readers.launches_per_unit, readers.products_ms_per_unit, readers.kernels_roofline,
-           readers.idle_share, readers.mfu)
+           readers.idle_share, readers.mfu, spans.predict_host_ms, spans.predict_idle_share,
+           spans.posterior_device_ms)
 
 
 def test_the_model_and_training_groups_pass_to_the_port_whole():
@@ -130,9 +133,56 @@ def test_model_flops_by_hand():
     # H = 2, O = 2 (G = 4), T = 2, S = 6, c = 3, B = 5
     forward = (4 * 36 * 4 + 2 * 4 * 6 * 5 * 4 + 4 * 216 // 3 + 4 * 36 * 5 + 4 * 2 * 9
                + 4 * 2 * 27 + 2 * 4 * 6 * 5 + 2 * 4 * 2 * 9 * 5)
-    assert costs.predict_call_flops(cfg, 2, 5) == forward
+    # a call that draws anew, and builds the chain posterior, each time
+    assert costs.predict_call_flops(cfg, 2, 5, 1) == forward
     kl = 2 * 2 * 4 * 3 * 3 + 2 * 2 * 4 * 3 * 3 + 4 * 27 + 2 * 4 * 9
     assert costs.train_step_flops(cfg, 5) == 3 * (forward + kl)
+
+
+@pytest.mark.parametrize("name,call,posterior,passes_per_call", [
+    ("pmnist_final.predict", 283.648, 225.4866667, 10 / 200),
+    ("smnist_final.predict", 61.1328, 16.1316, 5 / 21)])
+def test_a_predict_call_counts_the_posterior_once_a_pass(name, call, posterior, passes_per_call):
+    # H = 20, B = 512; P-MNIST's ten splits of 10,000 rows take 20 calls
+    # each, S-MNIST's five take 5, 4, 4, 4, 4
+    cfg = C.load(ROOT, name).config
+    assert sum(costs.call_terms(cfg, 20, 512).values()) / 1e9 == pytest.approx(call)
+    assert sum(costs.posterior_terms(cfg, 20).values()) / 1e9 == pytest.approx(posterior)
+    mix = C.make_mix(C.load(ROOT, name), 1, torch.device("cpu"))
+    assert mix.unit_flops() / 1e9 == pytest.approx(call + posterior * passes_per_call)
+
+
+def test_the_predict_window_is_whole_passes(tiny_cell, monkeypatch):
+    """A stub ``predict`` on a stub clock: a pass's first call takes 5 ms,
+    each other 1 ms.  Splits of 50, 20 and 70 rows in batches of 32 take
+    2, 1 and 3 calls: passes end at 6, 11, 18 and 24 ms, so a window of
+    20 ms ends at 24 ms, after the fourth pass's second call."""
+    cell = tiny_cell("predict")
+    cell.config = dict(cell.config, test_splits={"permuted": False, "rows": [50, 20, 70]})
+    mix = C.make_mix(cell, 2**31 + 7, torch.device("cpu"))
+    mix.setup()
+    clock, last = [0.0], [None]
+
+    def call(noise, xb):
+        clock[0] += 1e-3 if noise is last[0] else 5e-3
+        last[0] = noise
+        return np.full((len(xb), 3), 1 / 3)
+
+    monkeypatch.setattr(mix, "_call", call)
+    monkeypatch.setitem(type(mix).window.__globals__, "time",
+                        types.SimpleNamespace(perf_counter=lambda: clock[0]))
+    win = mix.window(0.020)
+    calls = mix.calls[:mix.n_window]
+    assert [(k, s, b) for k, s, b, _, _ in calls] == [
+        (0, 0, 0), (0, 0, 1), (1, 1, 0), (2, 2, 0), (2, 2, 1), (2, 2, 2), (3, 0, 0), (3, 0, 1)]
+    lat = np.array([c[3] for c in calls]) * 1e3
+    assert win["attempted"] == 8 and win["failed"] == 0
+    assert win["metrics"]["predict_ms_p99"] == np.percentile(lat, 99)
+    assert win["metrics"]["predict_ms_p95"] == np.percentile(lat, 95)
+    # real rows only: the padded rows of each split's last batch do not count
+    assert win["metrics"]["predict_rows_per_s"] == pytest.approx((50 + 20 + 70 + 50) / 0.024)
+    # the traced slice still stops at its count of calls, mid-pass or not
+    assert mix.traced() == 3 and len(mix.calls) == 8 + 3
 
 
 def _slice():
@@ -179,7 +229,10 @@ def test_each_metric_file_binds_the_reader_of_its_quantity(name):
     quantity = {"launches_per_call": readers.launches_per_unit,
                 "products_ms_per_call": readers.products_ms_per_unit,
                 "kernels_roofline": readers.kernels_roofline,
-                "idle_share": readers.idle_share, "mfu": readers.mfu}
+                "idle_share": readers.idle_share, "mfu": readers.mfu,
+                "predict_host_ms": spans.predict_host_ms,
+                "predict_idle_share": spans.predict_idle_share,
+                "posterior_device_ms": spans.posterior_device_ms}
     assert C.reader(ROOT, name) is quantity[name.split(".", 1)[0]]
 
 
@@ -189,7 +242,8 @@ def test_result_line_keys(tiny_cell):
     result, lines = run.run_cell(tiny_cell("predict"), 7, 0.2, False, torch.device("cpu"), 0.0)
     assert list(result) == RESULT_KEYS
     assert set(result["device"]) == {"platform", "kind", "count", "memory_peak_bytes"}
-    assert set(result["metrics"]) == {"predict_rows_per_s.tiny", "predict_ms_p95.tiny", "setup_s"}
+    assert set(result["metrics"]) == {"predict_rows_per_s.tiny", "predict_ms_p95.tiny",
+                                      "predict_ms_p99.tiny", "setup_s"}
     assert all(set(v) == {"value", "unit"} for v in result["metrics"].values())
     assert set(result["compared"]) == {"probs"} and len(lines) == 1
     assert "limit" in lines[0]
