@@ -43,7 +43,6 @@ from vargp_tpu_torch.kernels import (
     RBFParams,
     RBFPrior,
     cross_gram,
-    deep_gram,
     default_prior,
     gram,
     gram_diag,
@@ -208,6 +207,14 @@ def _row_mask(chain_mask: torch.Tensor, M: int) -> torch.Tensor:
     ])
 
 
+def _features(phi: MLPParams, rows: torch.Tensor, kind: str) -> torch.Tensor:
+    """The deep kernel's phi(rows) under a ``features`` span; the rows are
+    counted in ``tracing.FEATURES[kind]``."""
+    tracing.FEATURES[kind] += rows.numel() // rows.shape[-1]
+    with tracing.span("features"):
+        return mlp_apply(phi, rows)
+
+
 def build_posterior(params: VARGPParams, prev: Sequence[TaskPosterior],
                     hyper_eps: torch.Tensor, cfg: VARGPConfig, *,
                     chain_mask: torch.Tensor | None = None) -> ChainPosterior:
@@ -216,7 +223,7 @@ def build_posterior(params: VARGPParams, prev: Sequence[TaskPosterior],
         theta = sample_hypers(params.kernel, hyper_eps, map_est=cfg.map_est_hypers)
         z_all, u_means, u_trils, u_tril_t = _concat_chain(params, prev, cfg)
         if cfg.dkl:
-            Kzz = deep_gram(params.phi, theta, z_all)  # (H, O, S, S), K5
+            Kzz = gram(theta, _features(params.phi, z_all, "chain"))  # (H, O, S, S), K5
         else:
             Kzz = sym_gram(theta, z_all)  # (H, O, S, S), K1 or K2
         if chain_mask is not None:
@@ -254,9 +261,10 @@ def marginal_diag(cp: ChainPosterior, params: VARGPParams, x: torch.Tensor,
     and autograd sums the heads' cotangents alike)."""
     with tracing.span("marginal"):
         if cfg.dkl:
-            fx = mlp_apply(params.phi, x)  # (B, P)
+            fx = _features(params.phi, x, "batch")  # (B, P)
             fx = fx.expand(cfg.out_size, *fx.shape)
-            Kzx = gram(cp.theta, mlp_apply(params.phi, cp.z_all), fx)  # (H, O, S, B), K5
+            fz = _features(params.phi, cp.z_all, "chain")
+            Kzx = gram(cp.theta, fz, fx)  # (H, O, S, B), K5
         else:
             Kzx = cross_gram(cp.theta, cp.z_all, x)  # (H, O, S, B), K4
         if chain_mask is not None:

@@ -8,6 +8,8 @@ Spans mark the layer boundaries of a ``predict`` call and an ELBO step:
                    K_zz, its factor and inverse, the factored posterior
                    (in ``predict`` only on a call that builds it)
   ``marginal``     ``marginal_diag``: K_zx and the diagonal marginal
+  ``features``     under the deep kernel, one application of its feature
+                   map phi, nested in ``posterior`` or ``marginal``
   ``likelihood``   ``softmax_predict`` in ``predict``, ``softmax_loss`` in
                    ``loss``
   ``train_block``  one block of ``train.loop.train_block``
@@ -43,6 +45,10 @@ posterior: ``build`` when the call built it, ``reuse`` when it reused the
 one the last build left (the same unchanged inputs).  The ``posterior``
 span opens only around a build, so a trace's ``posterior`` time is the
 builds' and ``POSTERIOR`` gives the share of calls that built.
+
+``FEATURES`` counts, always, the rows that go through the deep kernel's
+feature map: ``chain`` for the chain's inducing rows (every class's),
+``batch`` for rows of x.
 """
 
 import collections
@@ -62,6 +68,8 @@ CAPACITY = 1 << 16
 LAUNCHES = collections.Counter()
 # "build" / "reuse" -> predict calls that built / reused the chain posterior
 POSTERIOR = collections.Counter()
+# "chain" / "batch" -> rows that went through the deep kernel's feature map
+FEATURES = collections.Counter()
 
 
 class Span(NamedTuple):
