@@ -34,7 +34,12 @@ result) on a failure:
    exactly on the diagonal, and K1 and K2 bitwise equal on the same
    inputs at S = 300 and S = 1000; K3, K6, K7 and K8 must give NaN on a
    non-positive pivot where their plain versions do (K3 also in a
-   100-wide block), and K6's L^-1 L must be the identity;
+   100-wide block), and K6's L^-1 L must be the identity; K9 (tri_mm, the
+   marginal's triangular product W = L^-1 K_zx) at TRI_MM_SHAPES on the
+   marginal's own operands, against the dense f32 product and float64
+   (within twice the dense product's error; a 1xTF32 control must fail
+   that limit), and with NaN filled above L's diagonal, finite and bitwise
+   its product with tril(L);
 4. the forward path: ``loss`` and ``predict`` of the flagship VAR-GP model
    (A, Split-MNIST task 4: a 5-task chain, M=60, 10 classes, D=784, B=512,
    3 hyper samples, 10 function samples; random weights from a numpy seed)
@@ -122,7 +127,8 @@ result) on a failure:
    GRAM_SHAPES: K1 at A's, the evaluation's and P-MNIST's S = 500, K2 at
    B's, K4 at A's, B's and the evaluation's, K5's K_zz and K_zx at C's and
    the evaluation's, each with both bounds, 3xTF32 and f32, and the
-   effective TFLOP/s; all also cold: a 256 MB buffer
+   effective TFLOP/s; K9 at TRI_MM_SHAPES beside the dense
+   ``torch.matmul``, which is also its plain version; all also cold: a 256 MB buffer
    written between calls, CUDA events around each; K3 also at the
    diagonal blocks of A's, B's and the analysis's factorisations and at
    G = 200, each beside ``torch.linalg.cholesky`` on the same view; K6
@@ -175,7 +181,8 @@ result) on a failure:
    accuracies within 0.02 of phase 8's, rank 0's checkpoints reloaded
    into the single-device template.  A rank that fails or outlives its
    timeout fails the script.  ``python3 chip_smoke.py --phases=sharded``
-   runs phases 8 and 15 alone and prints no result line.
+   runs phases 8 and 15 alone and prints no result line;
+   ``--phases=tri_mm`` runs K9's checks and times alone, the same way.
 
 The line before the last two is one JSON object ``{"kernels": [...]}``; then
 the card's ``nvidia-smi`` name and power limit; the last line is
@@ -342,6 +349,20 @@ GRAM_SHAPES = {
         "eval K_zx": (ANALYSIS["n_var_samples"], FLAGSHIP["O"], FLAGSHIP["n_tasks"] * FLAGSHIP["M"],
                       ANALYSIS["batch_size"], DKL_FEATURES),
     },
+}
+
+# K9 (tri_mm, W = L^-1 K_zx of the predictive marginal) at (H, O, S, N):
+# the P-MNIST and S-MNIST cells' predict calls (H = 20), P-MNIST's
+# evaluation (H = 3), and a ragged S that is no multiple of 4 (the 4-byte
+# copies) beside N = 200 (a partial column tile)
+TRI_MM_SHAPES = {
+    "P-MNIST predict": (ANALYSIS["n_var_samples"], PMNIST_LAST["O"],
+                        PMNIST_LAST["n_tasks"] * PMNIST_LAST["M"], ANALYSIS["batch_size"]),
+    "S-MNIST predict": (ANALYSIS["n_var_samples"], FLAGSHIP["O"],
+                        FLAGSHIP["n_tasks"] * FLAGSHIP["M"], ANALYSIS["batch_size"]),
+    "P-MNIST evaluation": (PMNIST_LAST["H"], PMNIST_LAST["O"],
+                           PMNIST_LAST["n_tasks"] * PMNIST_LAST["M"], PMNIST_LAST["B"]),
+    "ragged": (2, 3, 250, 200),
 }
 
 # Tolerances, each against the plain version on the same card and inputs.
@@ -921,6 +942,69 @@ def check_nan_pivot(label, fn, plain, S, bad, G=2):
           f"has NaN")
 
 
+def tri_mm_inputs(rng, H, O, S, N, dev):
+    """K9's operands as the predictive marginal makes them: L^-1 of the
+    chain's RBF Gram (K1, the jitter, the default blocked factorisation)
+    and K_zx against N rows (K4), from gram_inputs at D = 784."""
+    from vargp_tpu_torch.gpmath import add_jitter
+    from vargp_tpu_torch.ops import dispatch
+    from vargp_tpu_torch.ops.cuda.cross_gram import cross_gram
+    from vargp_tpu_torch.ops.cuda.sym_gram import sym_gram
+
+    z, x, invs, invs2, gamma2 = gram_inputs(rng, O, S, FLAGSHIP["D"], H, N, dev)
+    _, L_inv = dispatch.chol_and_inv(add_jitter(sym_gram(z, invs, gamma2)))
+    return L_inv.contiguous(), cross_gram(z, x, invs2, gamma2)
+
+
+def check_tri_mm(dev) -> tuple:
+    """K9 at each TRI_MM_SHAPES shape on the marginal's own operands: one
+    launch a call; against the dense f32 product (its plain version) and
+    against float64, within F64_RATIO times the dense product's error
+    (a 1xTF32 control must fail that limit); with NaN filled into L's
+    strictly-upper triangle, finite and bitwise equal to its product with
+    tril(L).  Returns the largest error against the plain version, the
+    float64 errors and each shape's timing case (kernel_times' arguments)."""
+    from vargp_tpu_torch.ops.cuda import build
+    from vargp_tpu_torch.ops.cuda.tri_mm import tri_mm, tri_mm_plain
+
+    def tril_mm(L, X):  # the triangular product in any precision
+        return torch.matmul(torch.tril(L), X)
+
+    def tril_mm_1xtf32(L, X):
+        return torch.matmul(tf32(torch.tril(L)), tf32(X))
+
+    rng = np.random.default_rng(SEED + 9)
+    err, f64, cases = 0.0, {}, {}
+    for label, (H, O, S, N) in TRI_MM_SHAPES.items():
+        L, X = tri_mm_inputs(rng, H, O, S, N, dev)
+        got, n = launched(tri_mm, L, X)
+        if n != {"vargp_tri_mm": 1}:
+            raise AssertionError(f"tri_mm at {label}: launches {n}, expected one")
+        plain = tri_mm_plain(L, X)
+        e = max_abs_err(got, plain)
+        scale = float(plain.abs().max())  # the limit is relative to W's largest entry
+        check(f"tri_mm (K9) at {label} {(H, O, S, N)}, against the dense f32 product", e,
+              TOL_GRAM * scale, scale)
+        err = max(err, e)
+        f64[label] = check_f64(f"tri_mm (K9) at {label}", got, tril_mm, tril_mm_1xtf32, (L, X))
+        upper = torch.ones(S, S, dtype=torch.bool, device=dev).triu(1)
+        poisoned = L.masked_fill(upper, float("nan"))
+        tril_got, nan_got = tri_mm(torch.tril(L), X), tri_mm(poisoned, X)
+        torch.cuda.synchronize()
+        if not (bool(torch.isfinite(nan_got).all()) and torch.equal(nan_got, tril_got)
+                and torch.equal(got, tril_got)):
+            raise AssertionError(f"tri_mm at {label}: with NaN above L's diagonal the product is "
+                                 "not finite or not bitwise its product with tril(L)")
+        print(f"  tri_mm (K9) at {label}: NaN above the diagonal: finite, bitwise the tril(L) "
+              "product")
+        cases[label] = dict(
+            shape=[H, O, S, N], fn=functools.partial(tri_mm, L, X),
+            plain=functools.partial(tri_mm_plain, L, X),
+            library=functools.partial(torch.matmul, L, X),
+            **work(build.cost("tri_mm", L.shape, X.shape)))
+    return err, f64, cases
+
+
 def check_chol_kernels(dev):
     """K8, K7 and K6 against their plain versions on the card: K8 at
     (30, 128, 128) and (200, 128, 128); K7 and K6 at A's and B's shapes, at
@@ -992,6 +1076,7 @@ COUNTERS = {
     "rbf_gram": ("vargp_rbf_gram", "vargp_rbf_gram_sym", "vargp_rbf_gram_small"),
     "rbf_gram_sym": ("vargp_rbf_gram_sym",), "chol_inv": ("vargp_chol_inv",),
     "cholesky": ("vargp_chol",), "diag_chol_chunked": ("vargp_diag_chol_chunked",),
+    "tri_mm": ("vargp_tri_mm",),
 }
 
 
@@ -1103,6 +1188,10 @@ def check_forward(name, dev, route="default"):
         launches = read_counts()
         print(f"  launches: {launches}")
         want = {k: 2 * v for k, v in expected_launches(name, route).items()}
+        # the marginal of loss and of predict takes K9 for W = L^-1 K_zx (the
+        # flagship's parameters record no gradient) wherever the posterior
+        # keeps L^-1 factored; the solve route's materialised one does not
+        want["tri_mm"] = 0 if route == "solve" else 2
         if launches != want:
             raise AssertionError(f"{name}: launches {launches} on the forward path, expected {want}")
         check_outputs("card", pieces, probs, TRAIN[name]["shape"])
@@ -1187,7 +1276,8 @@ def check_analysis(dev):
     want = {k: 0 for k in counters()}
     # each cell's posterior builds K_zz (K5, symmetric) and its factor (K3
     # three times) once; each batch launches K_zx (K5)
-    want.update(rbf_gram=n_batches + n_cells, rbf_gram_sym=n_cells, diag_chol=3 * n_cells)
+    want.update(rbf_gram=n_batches + n_cells, rbf_gram_sym=n_cells, diag_chol=3 * n_cells,
+                tri_mm=n_batches)  # and each batch's W = L^-1 K_zx (K9)
     if launches != want:
         raise AssertionError(f"analysis: launches {launches}, expected {want}")
 
@@ -1320,10 +1410,12 @@ def check_protocol(dev, smi):
         raise AssertionError(f"protocol: task 0 validation accuracy {val0} at epoch {pr['epochs']},"
                              f" expected >= {pr['min_val_acc']}")
     # every step and every evaluated split builds one posterior (K1, K3 x 3)
-    # and every step and evaluated batch one K_zx (K4)
+    # and every step and evaluated batch one K_zx (K4); every evaluated batch
+    # (no gradient) W = L^-1 K_zx by K9
     want = {k: 0 for k in counters()}
     n_post = rec["steps"] + len(rec["split_ms"])
-    want.update(sym_gram=n_post, diag_chol=3 * n_post, cross_gram=rec["steps"] + rec["batches"])
+    want.update(sym_gram=n_post, diag_chol=3 * n_post, cross_gram=rec["steps"] + rec["batches"],
+                tri_mm=rec["batches"])
     if launches != want:
         raise AssertionError(f"protocol: launches {launches}, expected {want}")
 
@@ -2601,15 +2693,15 @@ def check_k7_small(dev, cond_cov):
 # same noise, or within `tol` with the reason printed; its launches per
 # call under each route
 EXPORT = dict(batch_size=512, n_f=50, n_var_samples=20, reps=10, tol=1e-6, seed=SEED + 11,
-              launches={"default": {"sym_gram": 1, "diag_chol": 3, "cross_gram": 1},
-                        "fused": {"sym_gram": 1, "chol_inv": 1, "cross_gram": 1}})
+              launches={"default": {"sym_gram": 1, "diag_chol": 3, "cross_gram": 1, "tri_mm": 1},
+                        "fused": {"sym_gram": 1, "chol_inv": 1, "cross_gram": 1, "tri_mm": 1}})
 # each launch counter's kernels in a trace, by their __global__ names (K8's
 # launcher runs K3's kernel; rbf_gram_sym is a part of rbf_gram's count)
 KERNEL_SYMBOLS = {
     "sym_gram": r"\bsym_gram_kernel\b", "sym_gram_tri": r"\bsym_gram_tri_kernel\b",
     "diag_chol": r"\bdiag_chol_kernel\b", "cross_gram": r"\bcross_gram_kernel\b",
     "rbf_gram": r"\brbf_gram(_sym|_small)?_kernel\b", "chol_inv": r"\bchol_inv_kernel\b",
-    "cholesky": r"\bchol_kernel\b",
+    "cholesky": r"\bchol_kernel\b", "tri_mm": r"\btri_mm_kernel\b",
 }
 PROFILE = dict(iters=10, top=15)
 
@@ -3134,6 +3226,15 @@ def main() -> int:
         check_sharded(dev, smi, protocol)
         print(f"total: {time.perf_counter() - t_start:.1f} s")
         return 0
+    if sys.argv[1:] == ["--phases=tri_mm"]:  # K9's checks and times alone, no result line
+        _, f64_k9, cases = check_tri_mm(dev)
+        times = {label: kernel_times(**case) for label, case in cases.items()}
+        for label, t in times.items():
+            print(f"  tri_mm at {label}: {fmt_times(t)}")
+        print(json.dumps({"tri_mm": times, "f64": f64_k9}))
+        print(smi)
+        print(f"total: {time.perf_counter() - t_start:.1f} s")
+        return 0
     print("kernels against their plain versions on the card:")
     errs, f64 = check_kernels(dev)
     errs["diag_chol"], flag_k3 = check_k3(dev)
@@ -3141,6 +3242,8 @@ def main() -> int:
     errs["rbf_gram"], f64["rbf_gram"] = check_k5(dev)
     errs_chol, flag_chol, clusters = check_chol_kernels(dev)
     errs.update(errs_chol)
+    print("K9, the marginal's triangular product W = L^-1 K_zx:")
+    errs["tri_mm"], f64["tri_mm"], tri_mm_cases = check_tri_mm(dev)
     print("the global SVGP's kernel shapes (K5 on raw pixels and on the toy's 2 inputs, K7):")
     e5, f64_global, k5_global = check_k5_global(dev)
     errs["rbf_gram"] = max(errs["rbf_gram"], e5)
@@ -3252,6 +3355,10 @@ def main() -> int:
         dict(  # its row holds C's K_zz (the symmetric launch)
             name="rbf_gram", route="cuda", source="vargp_tpu_torch/csrc/rbf_gram.cu",
             replaces="vargp_tpu/ops/pallas/rbf_gram.py:47", cases=grams["rbf_gram"],
+        ),
+        dict(  # no train step runs it (the step records gradients): 0 launches a step
+            name="tri_mm", route="cuda", source="vargp_tpu_torch/csrc/tri_mm.cu",
+            replaces="none (XLA's dot, vargp_tpu/gpmath/conditional.py:420)", cases=tri_mm_cases,
         ),
     ]
     # K8, K7 and K6 (their wrappers' cost functions): the lower triangle

@@ -36,10 +36,11 @@ from vargp_tpu_torch.ops.cuda.diag_chol import diag_chol, diag_chol_chunked, dia
 from vargp_tpu_torch.ops.cuda.rbf_gram import rbf_gram, rbf_gram_plain
 from vargp_tpu_torch.ops.cuda.sym_gram import sym_gram, sym_gram_plain
 from vargp_tpu_torch.ops.cuda.sym_gram_tri import sym_gram_tri
+from vargp_tpu_torch.ops.cuda.tri_mm import tri_mm, tri_mm_plain
 from vargp_tpu_torch.utils import tracing
 
 OPS = ("sym_gram", "sym_gram_tri", "cross_gram", "diag_chol", "diag_chol_chunked", "rbf_gram",
-       "rbf_gram_sym", "cholesky", "chol_inv")
+       "rbf_gram_sym", "cholesky", "chol_inv", "tri_mm")
 
 
 def _spd(rng, G, S):
@@ -71,6 +72,9 @@ def _inputs(rng, name):
     if name == "rbf_gram_sym":
         sx, g = t(6, 20, 3), t(6).exp()
         return (lambda: rbf_gram(sx, sx, g)), (lambda: rbf_gram_plain(sx, sx, g)), (sx, g)
+    if name == "tri_mm":
+        L, X = torch.tril(t(2, 3, 9, 9)), t(2, 3, 9, 5)
+        return (lambda: tri_mm(L, X)), (lambda: tri_mm_plain(L, X)), (L, X)
     K = _spd(rng, 3, 150)
     if name == "cholesky":
         return (lambda: cholesky(K)), (lambda: cholesky_plain(K)), (K,)

@@ -26,6 +26,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 from vargp_tpu_torch.gpmath.linalg import cholesky, mm_h, mtm_h, tri_half_split, tri_solve
+from vargp_tpu_torch.ops.cuda.tri_mm import tri_mm
 
 
 # ---------------------------------------------------------------------------
@@ -145,6 +146,16 @@ def ar_joint_posterior_factored(
     return ARFactored(v=v_full, w=torch.broadcast_to(w, (*batch, T, M, M)))
 
 
+def takes_tri_mm(L_inv: torch.Tensor, Kzx: torch.Tensor) -> bool:
+    """Whether W = L^{-1} Kzx takes ``tri_mm``: both operands on the card,
+    neither recording a gradient (the kernel has no backward rule, so the
+    ELBO step keeps the dense product) and the same leading dimensions (no
+    broadcast).  On the CPU the dense product is the kernel's plain version
+    anyway."""
+    return (L_inv.is_cuda and Kzx.is_cuda and not (L_inv.requires_grad or Kzx.requires_grad)
+            and L_inv.shape[:-2] == Kzx.shape[:-2])
+
+
 def whitened_marginal_diag_factored(
     L_inv: torch.Tensor,
     v_mean: torch.Tensor,
@@ -155,9 +166,16 @@ def whitened_marginal_diag_factored(
     """Diagonal predictive marginal (f_mean, f_var), each (..., B):
 
       f_mean = v^T W,  f_var = Kxx - diag(W^T W) + diag(C^T C),
-      W = L^{-1} Kzx,  C_t = w_t^T W_t."""
+      W = L^{-1} Kzx,  C_t = w_t^T W_t.
+
+    W goes through the triangular product ``tri_mm`` (3xTF32, L^{-1}'s zero
+    upper triangle skipped) when :func:`takes_tri_mm` holds, else through
+    the dense ``mm_h``: the same values to f32 accuracy."""
     T, M = w.shape[-3], w.shape[-1]
-    W = mm_h(L_inv, Kzx)  # (..., S, B)
+    if takes_tri_mm(L_inv, Kzx):
+        W = tri_mm(L_inv.contiguous(), Kzx.contiguous())  # (..., S, B)
+    else:
+        W = mm_h(L_inv, Kzx)
     f_mean = torch.einsum("...mi,...mb->...b", v_mean, W)
     diag1 = torch.sum(torch.square(W), dim=-2)
     W4 = W.reshape(*W.shape[:-2], T, M, W.shape[-1])

@@ -70,6 +70,7 @@ _SIGNATURES = {
     "vargp_diag_chol_chunked": (_P, _P, _I, _P),
     "vargp_chol": (_P, _P, _I, _I, _I, _P),  # K, L, G, S, cluster size, stream
     "vargp_chol_inv": (_P, _P, _P, _I, _I, _I, _P),
+    "vargp_tri_mm": (_P, _P, _P, _I, _I, _I, _P),  # L, X, out, G, S, N
 }
 
 
