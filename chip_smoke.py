@@ -1602,8 +1602,8 @@ def check_training(dev):
         c = train_inputs(name, torch.device("cpu"))
         cx, cy, cw = c["data"]
         draws = itertools.islice(
-            TL.block_draws(torch.Generator(device=dev).manual_seed(seed), dx.shape[0], B, 1,
-                           t["cfg"], len(t["prev"])), 3)
+            TL.GeneratorDraws(torch.Generator(device=dev).manual_seed(seed)).block(
+                dx.shape[0], B, 1, t["cfg"], len(t["prev"])), 3)
         params, state = c["params"], c["opt"].init(c["params"])
         for k, (idx, noise) in enumerate(draws):
             idx = idx.cpu()
@@ -1902,11 +1902,15 @@ def global_grads(t):
 
 
 def global_step(t):
+    from vargp_tpu_torch.train import loop as TL
     from vargp_tpu_torch.train import loop_global as TLG
 
-    return TLG.elbo_step(t["params"], t["opt"].init(t["params"]), t["prev"], t["prior"], t["x"],
-                         t["y"], t["w"], t["noise"], cfg=t["cfg"], opt=t["opt"], beta=t["beta"],
-                         n_train=t["n_train"], device=t["device"])
+    return TL.gradient_step(
+        t["params"], t["opt"].init(t["params"]),
+        lambda p: TLG.elbo(p, t["prev"], t["prior"], t["x"], t["y"], t["w"], t["noise"],
+                           cfg=t["cfg"], beta=t["beta"], n_train=t["n_train"],
+                           device=t["device"]),
+        t["opt"])
 
 
 def check_global_step(name, dev):
@@ -1954,8 +1958,7 @@ def recorded_global(dev):
 
     rec = {"infos": [], "steps": 0, "split_ms": [], "batches": 0, "last_split": None,
            "draws": []}
-    orig = (global_run.train_task, TLG.train_block_global, TLG.make_device_eval_fn_global,
-            A.eval_draws)
+    orig = (global_run.train_task, TLG.step_block, TLG.make_device_eval_fn_global, A.eval_draws)
 
     def train_task(*a, **kw):
         params, info = orig[0](*a, **kw)
@@ -1987,13 +1990,13 @@ def recorded_global(dev):
             rec["draws"].append(d)
             yield d
 
-    global_run.train_task, TLG.train_block_global, TLG.make_device_eval_fn_global = (
+    global_run.train_task, TLG.step_block, TLG.make_device_eval_fn_global = (
         train_task, train_block, make_eval_fn)
     A.eval_draws = eval_draws
     try:
         yield rec
     finally:
-        (global_run.train_task, TLG.train_block_global, TLG.make_device_eval_fn_global,
+        (global_run.train_task, TLG.step_block, TLG.make_device_eval_fn_global,
          A.eval_draws) = orig
 
 
@@ -2299,11 +2302,15 @@ def retrain_grads(t):
 
 def retrain_step(t, opt_state=None):
     from vargp_tpu_torch.experiments import retrain_run as RR
+    from vargp_tpu_torch.train import loop as TL
 
     state = t["opt"].init(t["params"]) if opt_state is None else opt_state
-    return RR.elbo_step(t["params"], state, t["frozen"], t["prior"], t["x"], t["y"], t["w"],
-                        t["noise"], cfg=t["cfg"], opt=t["opt"], beta=t["beta"],
-                        n_train=t["n_train"], device=t["device"])
+    return TL.gradient_step(
+        t["params"], state,
+        lambda p: RR.elbo(p, t["frozen"], t["prior"], t["x"], t["y"], t["w"], t["noise"],
+                          cfg=t["cfg"], beta=t["beta"], n_train=t["n_train"],
+                          device=t["device"]),
+        t["opt"])
 
 
 def compare_retrain(label, t, c):
@@ -2380,7 +2387,7 @@ def recorded_retrain():
     from vargp_tpu_torch.experiments import retrain_run as RR
 
     rec = {"params": [], "infos": [], "losses": [], "evals": [], "last_eval": None}
-    orig = (RR.train_task, RR.train_block, RR.accuracy)
+    orig = (RR.train_task, RR.step_block, RR.accuracy)
 
     def train_task(*a, **kw):
         params, info = orig[0](*a, **kw)
@@ -2399,11 +2406,11 @@ def recorded_retrain():
         rec["last_eval"] = (a, kw, out)
         return out
 
-    RR.train_task, RR.train_block, RR.accuracy = train_task, train_block, accuracy
+    RR.train_task, RR.step_block, RR.accuracy = train_task, train_block, accuracy
     try:
         yield rec
     finally:
-        RR.train_task, RR.train_block, RR.accuracy = orig
+        RR.train_task, RR.step_block, RR.accuracy = orig
 
 
 def check_retrain_protocol(dev, smi):
@@ -2558,7 +2565,7 @@ def check_regression(dev, smi):
 
     pr = REGRESSION
     losses = {"card": [], "cpu": []}
-    orig = RG.step
+    orig = RG.gradient_step
 
     def run(where, draws, epochs):
         def step(*a, **kw):
@@ -2566,13 +2573,13 @@ def check_regression(dev, smi):
             losses[where].append(out[2])
             return out
 
-        RG.step = step
+        RG.gradient_step = step
         try:
             with tempfile.TemporaryDirectory() as d:
                 return RG.regression(epochs=epochs, M=pr["M"], seed=pr["seed"], log_dir=d,
                                      device=dev if where == "card" else "cpu", draws=draws)
         finally:
-            RG.step = orig
+            RG.gradient_step = orig
 
     rec = RecordedRegressionDraws(task_generator(np.random.SeedSequence(pr["seed"]), 0, dev))
     reset_counts()
@@ -2642,7 +2649,7 @@ def time_retrain_training(dev):
     hyper = torch.randn((3, 2), generator=torch.Generator(device=dev).manual_seed(0), device=dev)
 
     def reg_step():
-        return RG.step(params, state, prior, x, y, hyper, opt=opt)
+        return RG.gradient_step(params, state, lambda p: RG.elbo(p, prior, x, y, hyper), opt)
 
     launches, busy = traced_step(reg_step)
     step_ms = time_ms(reg_step, reps=10)
@@ -3021,9 +3028,8 @@ def _sharded_step_run(label, model_parallel, dev):
 
     dx, dy, dw = t["data"]
     B = t["x"].shape[0]
-    draws = itertools.islice(TL.block_draws(torch.Generator(device=dev).manual_seed(SEED + 21),
-                                            dx.shape[0], B, 1, cfg, len(prev)),
-                             sh["block_steps"])
+    draws = itertools.islice(TL.GeneratorDraws(torch.Generator(device=dev).manual_seed(SEED + 21))
+                             .block(dx.shape[0], B, 1, cfg, len(prev)), sh["block_steps"])
     run = parallel.make_sharded_device_train_fn(cfg, t["opt"], t["beta"], B, 1, mesh)
     pb, _, losses, bpieces = run(p, t["opt"].init(p), prev, t["prior"], t["mask"], t["n_train"],
                                  dx, dy, dw, None, draws=draws)
@@ -3106,8 +3112,8 @@ def check_sharded(dev, smi, protocol) -> dict:
     p_ref, s_ref, loss_ref, pieces_ref = step(t)
     dx, dy, dw = t["data"]
     B = t["x"].shape[0]
-    draws = itertools.islice(TL.block_draws(torch.Generator(device=dev).manual_seed(SEED + 21),
-                                            dx.shape[0], B, 1, t["cfg"], len(t["prev"])),
+    draws = itertools.islice(TL.GeneratorDraws(torch.Generator(device=dev).manual_seed(SEED + 21))
+                             .block(dx.shape[0], B, 1, t["cfg"], len(t["prev"])),
                              sh["block_steps"])
     pb_ref, _, losses_ref, _ = TL.train_block(
         t["params"], t["opt"].init(t["params"]), t["prev"], t["prior"], t["mask"], t["n_train"],

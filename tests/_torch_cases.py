@@ -193,17 +193,23 @@ class JaxDraws:
             out["phi_uniform"] = [self._t(u) for u in _mlp_uniform(k_phi, dims)]
         return out
 
-    def block(self, n_pad, batch_size, n_epochs, cfg, n_prev):
+    def block(self, n_pad, batch_size, n_epochs, cfg, *shape):
+        """The port's ``block`` seam: one key split off the run's per train
+        block, epoch e's permutation from ``fold_in(k_blk, e)``, step s's
+        loss draws from ``fold_in(k_blk, n_epochs + s)`` (``step_noise``)."""
         self.key_seq, k_blk = jax.random.split(self.key_seq)
         steps = n_pad // batch_size
         for e in range(n_epochs):
             perm = self._t(jax.random.permutation(jax.random.fold_in(k_blk, e), n_pad)).long()
             for s in range(steps):
                 k = jax.random.fold_in(k_blk, n_epochs + e * steps + s)
-                hyper, prefix, lik = _loss_draws(k, cfg, cfg.out_size, batch_size,
-                                                 n_prev * cfg.M)
                 yield (perm[s * batch_size:(s + 1) * batch_size],
-                       convert.noise_for_loss(hyper, prefix, lik, device="cpu"))
+                       self.step_noise(k, cfg, batch_size, *shape))
+
+    @staticmethod
+    def step_noise(k, cfg, batch_size, n_prev):
+        hyper, prefix, lik = _loss_draws(k, cfg, cfg.out_size, batch_size, n_prev * cfg.M)
+        return convert.noise_for_loss(hyper, prefix, lik, device="cpu")
 
     def evaluation(self, cfg_eval, n_batches, batch_size, per_batch):
         self.key_seq, k_ev = jax.random.split(self.key_seq)
@@ -344,16 +350,10 @@ class JaxGlobalDraws(JaxDraws):
         return {"kernel_eps": self._t(jax.random.normal(k_kern, (cfg.in_size + 1,))),
                 "u_eps": self._t(jax.random.normal(k_u, (cfg.out_size, cfg.M, 1)))}
 
-    def block(self, n_pad, batch_size, n_epochs, cfg, M_prev):
-        self.key_seq, k_blk = jax.random.split(self.key_seq)
-        steps = n_pad // batch_size
-        for e in range(n_epochs):
-            perm = self._t(jax.random.permutation(jax.random.fold_in(k_blk, e), n_pad)).long()
-            for s in range(steps):
-                k = jax.random.fold_in(k_blk, n_epochs + e * steps + s)
-                hyper, lik, reg = global_loss_draws(k, cfg, batch_size, M_prev)
-                yield (perm[s * batch_size:(s + 1) * batch_size],
-                       convert.noise_for_global_loss(hyper, lik, reg, device="cpu"))
+    @staticmethod
+    def step_noise(k, cfg, batch_size, M_prev):
+        return convert.noise_for_global_loss(*global_loss_draws(k, cfg, batch_size, M_prev),
+                                             device="cpu")
 
     def evaluation(self, cfg_eval, n_batches, batch_size, per_batch):
         self.key_seq, k_ev = jax.random.split(self.key_seq)
@@ -488,7 +488,7 @@ def retrain_noise(m: dict, key, dtype=torch.float32) -> dict:
                 zip(("hyper_eps", "lik_eps", "u_eps", "ut_eps"), draws) if v is not None}
 
 
-class JaxRetrainDraws:
+class JaxRetrainDraws(JaxDraws):
     """A draw source for the port's Retrain ``train_task`` that replays the
     JAX ``retrain_run.toy``'s draws for one task from its keys (k_sel,
     k_init, k_task): the inducing rows from k_sel, the initial parameters
@@ -501,8 +501,6 @@ class JaxRetrainDraws:
     def __init__(self, k_sel, k_init, k_task):
         self.k_sel, self.k_init, self.key_seq = k_sel, k_init, k_task
 
-    _t = staticmethod(JaxDraws._t)
-
     def inducing(self, data, M, out_size):
         z = JV.select_inducing(self.k_sel, jnp.asarray(data.numpy()), M, out_size)
         return self._t(z).to(data.device)
@@ -512,16 +510,10 @@ class JaxRetrainDraws:
         return {"kernel_eps": self._t(jax.random.normal(k_kern, (cfg.in_size + 1,))),
                 "u_eps": self._t(jax.random.normal(k_u, (cfg.out_size, cfg.M, 1)))}
 
-    def block(self, n_pad, batch_size, n_epochs, cfg, S, c):
-        self.key_seq, k_blk = jax.random.split(self.key_seq)
-        steps = n_pad // batch_size
-        for e in range(n_epochs):
-            perm = self._t(jax.random.permutation(jax.random.fold_in(k_blk, e), n_pad)).long()
-            for s in range(steps):
-                k = jax.random.fold_in(k_blk, n_epochs + e * steps + s)
-                yield (perm[s * batch_size:(s + 1) * batch_size],
-                       convert.noise_for_retrain_loss(
-                           *retrain_loss_draws(k, cfg, batch_size, S, c), device="cpu"))
+    @staticmethod
+    def step_noise(k, cfg, batch_size, S, c):
+        return convert.noise_for_retrain_loss(*retrain_loss_draws(k, cfg, batch_size, S, c),
+                                              device="cpu")
 
     def evaluation(self, cfg, batch_size):
         self.key_seq, k_ev = jax.random.split(self.key_seq)

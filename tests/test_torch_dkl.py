@@ -294,8 +294,8 @@ def test_dkl_train_block_is_a_loop_of_elbo_steps(model):
         tp, opt.init(tp), tprev, tprior, None, 64, x, y, w, torch.Generator().manual_seed(3),
         batch_size=B, n_epochs=1, **kw)
     p, s, want = tp, opt.init(tp), []
-    for idx, noise in TL.block_draws(torch.Generator().manual_seed(3), 64, B, 1, m["tcfg"],
-                                     len(tprev)):
+    for idx, noise in TL.GeneratorDraws(torch.Generator().manual_seed(3)).block(
+            64, B, 1, m["tcfg"], len(tprev)):
         p, s, loss, _ = TL.elbo_step(p, s, tprev, tprior, x[idx], y[idx], w[idx], noise,
                                      n_train=64, **kw)
         want.append(loss)

@@ -171,7 +171,8 @@ def test_train_task_matches_jax_with_its_draws():
 
 def test_elbo_step_and_optimizer_state_carry_over_from_optax():
     """One JAX ``_global_step`` (yogi) with the optimizer state converted
-    into the port and one port ``elbo_step`` on the same draws: the same
+    into the port and one port step (``gradient_step`` on the global
+    ``elbo``) on the same draws: the same
     loss, pieces, parameters and moments."""
     m = C.build_global("grown")
     hp = JL.TrainHyperparams(lr=1e-2)
@@ -183,10 +184,11 @@ def test_elbo_step_and_optimizer_state_carry_over_from_optax():
         cfg=m["cfg"], tx=tx, beta=2.0, n_train=100.0)
     tp, tprev, tprior, x, y, w = _port(m)
     tstate = convert.opt_state_from_numpy(C.np_tree(state[0]), device="cpu")
-    got_p, got_state, loss, aux = TLG.elbo_step(
-        tp, tstate, tprev, tprior, x, y, w, _port_noise(m, key), cfg=m["tcfg"],
-        opt=TL.make_optimizer(TL.TrainHyperparams(lr=1e-2)), beta=2.0, n_train=100.0,
-        device="cpu")
+    noise = _port_noise(m, key)
+    got_p, got_state, loss, aux = TL.gradient_step(
+        tp, tstate, lambda p: TLG.elbo(p, tprev, tprior, x, y, w, noise, cfg=m["tcfg"], beta=2.0,
+                                       n_train=100.0, device="cpu"),
+        TL.make_optimizer(TL.TrainHyperparams(lr=1e-2)))
     np.testing.assert_allclose(float(loss), float(jloss), rtol=RTOL)
     for g, j in zip(aux, jaux):
         np.testing.assert_allclose(float(g), float(j), rtol=RTOL, atol=1e-30)

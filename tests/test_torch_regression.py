@@ -34,6 +34,7 @@ from vargp_tpu_torch.experiments import regression as TReg
 from vargp_tpu_torch.kernels import RBFPrior
 from vargp_tpu_torch.kernels import init_rbf as init_rbf_t
 from vargp_tpu_torch.likelihoods import gaussian as TGa
+from vargp_tpu_torch.train import loop as TL
 from vargp_tpu_torch.train.optim import OptState, Yogi, tree_leaves, tree_unflatten
 from vargp_tpu_torch.utils import convert
 
@@ -86,8 +87,9 @@ def _port_value_and_grad(dtype, hyper):
     cast = lambda tree: tree_unflatten(tree, [a.to(dtype) for a in tree_leaves(tree)])
     tp, tprior = cast(tp), cast(tprior)
     leaves = [t.requires_grad_() for t in tree_leaves(tp)]
-    total, nll = TReg.elbo(tree_unflatten(tp, leaves), tprior, torch.tensor(np.asarray(x)).to(dtype),
-                           torch.tensor(np.asarray(y)).to(dtype), hyper.to(dtype))
+    total, (nll,) = TReg.elbo(tree_unflatten(tp, leaves), tprior,
+                              torch.tensor(np.asarray(x)).to(dtype),
+                              torch.tensor(np.asarray(y)).to(dtype), hyper.to(dtype))
     grads = torch.autograd.grad(total, leaves)
     return (float(total.detach()), float(nll.detach())), [g.double().numpy() for g in grads]
 
@@ -136,8 +138,9 @@ def test_step_loss_and_gradients_match_jax(precision):
 
 
 def test_yogi_state_after_steps_matches_optax():
-    """Four steps of the port's ``step`` and of the JAX driver's step
-    (``optax.yogi(1e-2)`` on the dict) on the same keys, in float64: the
+    """Four steps of the port's (``gradient_step`` on ``elbo``) and of the
+    JAX driver's step (``optax.yogi(1e-2)`` on the dict) on the same keys,
+    in float64: the
     parameters and the Yogi state (count, mu, nu) leaf for leaf, the state
     carried over from optax's by ``convert``."""
     params, prior, x, y = _case()
@@ -166,7 +169,7 @@ def test_yogi_state_after_steps_matches_optax():
     ts = opt.init(tp)
     tx_, ty_ = torch.tensor(np.asarray(x)).double(), torch.tensor(np.asarray(y)).double()
     for h in hypers:
-        tp, ts, _, _ = TReg.step(tp, ts, tprior, tx_, ty_, h, opt=opt)
+        tp, ts, _, _ = TL.gradient_step(tp, ts, lambda p: TReg.elbo(p, tprior, tx_, ty_, h), opt)
     conv = convert.opt_state_from_numpy(want_s, device="cpu")
     assert isinstance(conv, OptState) and type(conv.mu).__name__ == "RegressionParams"
     assert int(ts.count) == int(conv.count) == 4
@@ -196,8 +199,9 @@ class JaxRegressionDraws:
 
 def _exact_driver(epochs, M, seed):
     """The driver's loop in float64 on the JAX driver's draws: the same
-    data, inducing rows and initial values, the port's ``step`` and
-    ``_forward``.  Returns (params, rmse)."""
+    data, inducing rows and initial values, the port's step
+    (``gradient_step`` on ``elbo``) and ``_forward``.  Returns (params,
+    rmse)."""
     rng = np.random.default_rng(seed)
     x, y = (torch.from_numpy(a).double() for a in TReg._make_data(rng))
     idx = rng.permutation(len(x))[:M]
@@ -211,7 +215,9 @@ def _exact_driver(epochs, M, seed):
     opt = Yogi(1e-2)
     state = opt.init(params)
     for _ in range(epochs):
-        params, state, _, _ = TReg.step(params, state, prior, x, y, f64(draws.hypers(H)), opt=opt)
+        h = f64(draws.hypers(H))
+        params, state, _, _ = TL.gradient_step(params, state,
+                                               lambda p: TReg.elbo(p, prior, x, y, h), opt)
     mu, var, _ = TReg._forward(params, x, f64(draws.hypers(16)))
     pred = mu.mean(0)[0]
     return params, float(torch.sqrt(torch.mean(torch.square(pred - y[0]))))

@@ -1,15 +1,21 @@
 """The port's spans and launch counters (``utils/tracing.py``) on the CPU:
 recorded only inside a ``torch.profiler`` session, nested with their
 parents and call ids, on the profiler's clock; the span tree of
-``predict`` and of a train block's ``elbo_step``; none in an exported
-predictor; the operator's per-span summary (``utils/profiling.py``)."""
+``predict`` and of every model's train block and ``elbo_step``; none in
+an exported predictor; the operator's per-span summary
+(``utils/profiling.py``)."""
 
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from vargp_tpu_torch import data as tdata
+from vargp_tpu_torch.experiments import retrain_run as TRR
+from vargp_tpu_torch.models import global_svgp as TG
 from vargp_tpu_torch.models import vargp as V
+from vargp_tpu_torch.models import vargp_retrain as TR
 from vargp_tpu_torch.train import loop as TL
+from vargp_tpu_torch.train import loop_global as TLG
 from vargp_tpu_torch.utils import profiling, tracing
 
 O, M, D, B, H, N_F = 2, 8, 4, 16, 2, 3
@@ -122,21 +128,43 @@ def test_predict_emits_its_span_tree():
     assert len({s.call for s in spans}) == 1
 
 
-def test_a_train_block_emits_a_step_tree_per_step():
-    params, prev, prior, cfg, _, _, _, gen = _case()
-    n = 2 * B
-    data_x = torch.randn(n, D, generator=gen) * 0.3
-    data_y = torch.randint(0, O, (n,), generator=gen)
-    hp = TL.TrainHyperparams(lr=1e-2, batch_size=B)
-    opt = TL.make_optimizer(hp)
-    with profile(activities=[ProfilerActivity.CPU]):
+def _train_two_steps(model: str):
+    """One train block of two steps of ``model``: VAR-GP's ``train_block``;
+    for the global model and Retrain a one-epoch ``train_task`` on a
+    2-class toy task of 100 rows in batches of 50."""
+    if model == "vargp":
+        params, prev, prior, cfg, _, _, _, gen = _case()
+        n = 2 * B
+        data_x = torch.randn(n, D, generator=gen) * 0.3
+        data_y = torch.randint(0, O, (n,), generator=gen)
+        hp = TL.TrainHyperparams(lr=1e-2, batch_size=B)
+        opt = TL.make_optimizer(hp)
         TL.train_block(params, opt.init(params), prev, prior, None, n, data_x, data_y,
                        torch.ones(n), gen, cfg=cfg, opt=opt, beta=1.0, batch_size=B,
                        n_epochs=1, device="cpu")
+        return
+    toy = tdata.filter_by_class(tdata.make_toy_dataset(seed=0), [0, 1])
+    dims = dict(M=4, out_size=4, in_size=2, n_f=2, n_var_samples=2)
+    hp = TL.TrainHyperparams(epochs=1, batch_size=50, eval_interval=1)
+    if model == "global":
+        TLG.train_task(0, 0, toy, toy, toy, TG.GlobalSVGPConfig(**dims), hp, device="cpu")
+    else:
+        TRR.train_task(TRR.RetrainDraws(torch.Generator().manual_seed(0)), 0, toy, toy,
+                       TR.RetrainConfig(**dims), hp, device="cpu")
+
+
+@pytest.mark.parametrize("model", ["vargp", "global", "retrain"])
+def test_a_train_block_emits_a_step_tree_per_step(model):
+    """Every model's step is ``train.loop.gradient_step``: a train block
+    holds one ``elbo_step`` a step, with its ``backward`` and ``update``
+    (and VAR-GP's model spans) nested in it under its call id."""
+    with profile(activities=[ProfilerActivity.CPU]):
+        _train_two_steps(model)
     spans = tracing.spans()
-    step = [("elbo_step", "train_block"), ("posterior", "elbo_step"),
-            ("marginal", "elbo_step"), ("likelihood", "elbo_step"),
-            ("backward", "elbo_step"), ("update", "elbo_step")]
+    inner = [("posterior", "elbo_step"), ("marginal", "elbo_step"),
+             ("likelihood", "elbo_step")] if model == "vargp" else []
+    step = [("elbo_step", "train_block"), *inner, ("backward", "elbo_step"),
+            ("update", "elbo_step")]
     assert _tree(spans) == [("train_block", None)] + step + step
     steps = [s for s in spans if s.name == "elbo_step"]
     for st in steps:

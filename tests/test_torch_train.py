@@ -1,7 +1,8 @@
 """The port's training pieces against the JAX package on the CPU: Yogi and
 Adam against optax, ``elbo_step`` against the JAX ``elbo_step`` with the
 JAX package's noise replayed, the train block against a loop of the
-port's own steps, and the construction of a task's parameters.
+port's own steps, the blocks' schedule against the loops it replaced,
+and the construction of a task's parameters.
 
 Tolerances: the optimizers are the same elementwise f32 arithmetic as
 optax's, so their states agree to 1e-6 relative.  Three ELBO steps carry
@@ -168,6 +169,118 @@ def test_train_block_is_a_loop_of_elbo_steps():
     with pytest.raises(ValueError, match="multiple"):
         TL.train_block(tp, opt.init(tp), tprev, tprior, None, 80, x[:90], y[:90], w[:90],
                        torch.Generator(), batch_size=B, n_epochs=1, **kw)
+
+
+def _old_blocks(rule, epochs, eval_interval, steps_per_epoch, max_steps):
+    """(block sizes, evaluated epochs) of the loops the models had before
+    ``epoch_blocks``, verbatim: ``vargp`` VAR-GP's and the global model's
+    ``train_task`` (on the cadence and at the last epoch), ``retrain``
+    Retrain's (on the cadence only)."""
+    blocks, evals = [], []
+    if rule == "vargp":
+        epoch, last_eval = -1, 0
+        max_block_epochs = max(1, max_steps // max(steps_per_epoch, 1))
+        while epoch + 1 < epochs:
+            to_eval = eval_interval - ((epoch + 1) - last_eval)
+            block = min(max(to_eval, 1), epochs - (epoch + 1), max_block_epochs)
+            blocks.append(block)
+            epoch += block
+            if (epoch + 1) - last_eval >= eval_interval or epoch + 1 >= epochs:
+                last_eval = epoch + 1
+                evals.append(epoch + 1)
+        return blocks, evals
+    epoch = 0
+    max_block = max(1, max_steps // max(steps_per_epoch, 1))
+    while epoch < epochs:
+        to_eval = eval_interval - (epoch % eval_interval)
+        block = min(to_eval, epochs - epoch, max_block)
+        blocks.append(block)
+        epoch += block
+        if epoch % eval_interval == 0:
+            evals.append(epoch)
+    return blocks, evals
+
+
+class _Steps:
+    """A logger that keeps the epoch of each accuracy it is given."""
+
+    def __init__(self):
+        self.evals = []
+
+    def add_scalar(self, tag, value, step=0):
+        if tag.endswith("/acc"):
+            self.evals.append(step)
+
+
+def _vargp_blocks(epochs, eval_interval, steps_per_epoch, max_steps):
+    """``train.loop.fit``'s blocks and evaluated epochs (one val/acc tag an
+    evaluation), the train blocks and evaluations stubbed."""
+    hp = TL.TrainHyperparams(epochs=epochs, eval_interval=eval_interval, patience=-1,
+                             max_steps_per_dispatch=max_steps)
+    blocks, log = [], _Steps()
+
+    def block(params, opt_state, n_epochs):
+        blocks.append(n_epochs)
+        return params, opt_state, torch.zeros(1), torch.zeros(1, 3)
+
+    accs = {f"task0/{s}/acc": 0.5 for s in ("train", "val", "test")}
+    info = TL.fit(None, None, block, lambda params: accs, hp, 0, steps_per_epoch,
+                  ("kl_hypers", "kl_u", "lik"), log)
+    assert info["epochs"] == epochs and info["steps"] == sum(blocks) * steps_per_epoch
+    return blocks, log.evals[::3]
+
+
+def _retrain_blocks(epochs, eval_interval, steps_per_epoch, max_steps, monkeypatch):
+    """Retrain's ``train_task`` on a 100-row toy task in ``steps_per_epoch``
+    batches: its blocks' epochs (recorded by the draw source) and its
+    logged epochs, the train blocks and accuracies stubbed."""
+    from vargp_tpu_torch import data as tdata
+    from vargp_tpu_torch.experiments import retrain_run as TRR
+    from vargp_tpu_torch.models import vargp_retrain as TR
+
+    blocks = []
+
+    class Draws(TRR.RetrainDraws):
+        def block(self, n_pad, batch_size, n_epochs, *shape):
+            assert n_pad // batch_size == steps_per_epoch
+            blocks.append(n_epochs)
+            return ()
+
+    monkeypatch.setattr(TRR, "step_block", lambda step, params, opt_state, *a: (
+        params, opt_state, torch.zeros(1), torch.zeros(1, 3)))
+    monkeypatch.setattr(TRR, "accuracy", lambda *a, **kw: 0.5)
+    toy = tdata.filter_by_class(tdata.make_toy_dataset(seed=0), [0, 1])
+    hp = TL.TrainHyperparams(epochs=epochs, eval_interval=eval_interval, patience=-1,
+                             max_steps_per_dispatch=max_steps, batch_size=100 // steps_per_epoch)
+    log = _Steps()
+    _, info = TRR.train_task(Draws(torch.Generator().manual_seed(0)), 0, toy, toy,
+                             TR.RetrainConfig(M=3, out_size=4, in_size=2), hp, logger=log,
+                             device="cpu")
+    assert info["epochs"] == epochs and info["steps"] == sum(blocks) * steps_per_epoch
+    return blocks, log.evals
+
+
+# (epochs, eval_interval, steps a epoch, max_steps_per_dispatch)
+SCHEDULES = [
+    (20, 10, 1, 128),  # blocks of the interval
+    (25, 10, 1, 128),  # an interval that does not divide the epochs
+    (30, 10, 20, 64),  # a cap of 3 epochs below the interval
+    (7, 3, 5, 10),  # a cap of 2 below the interval, which does not divide the epochs
+    (12, 4, 50, 16),  # a step cap below one epoch: blocks of one epoch
+    (0, 10, 1, 128),  # no epoch
+]
+
+
+@pytest.mark.parametrize("rule,schedule", [("vargp", s) for s in SCHEDULES + [(5, 0, 1, 128)]]
+                         + [("retrain", s) for s in SCHEDULES])
+def test_epoch_blocks_keep_the_old_loops_blocks_and_evaluations(rule, schedule, monkeypatch):
+    """``epoch_blocks`` with each caller's evaluation rule gives the block
+    sizes and evaluated epochs of the loops it replaced: VAR-GP and the
+    global model (``fit``, an interval of 0 included) on the cadence and at
+    the last epoch, Retrain on the cadence only."""
+    got = (_vargp_blocks(*schedule) if rule == "vargp"
+           else _retrain_blocks(*schedule, monkeypatch))
+    assert got == _old_blocks(rule, *schedule)
 
 
 def test_draw_noise_shapes_fit_loss():

@@ -38,7 +38,8 @@ from vargp_tpu_torch.likelihoods import (
     init_gaussian,
 )
 from vargp_tpu_torch.ops.device import resolve_device
-from vargp_tpu_torch.train.optim import Yogi, tree_leaves, tree_unflatten
+from vargp_tpu_torch.train.loop import gradient_step
+from vargp_tpu_torch.train.optim import Yogi
 from vargp_tpu_torch.utils.logging import MetricsLogger
 from vargp_tpu_torch.utils.prng import seed_everything, task_generator
 
@@ -74,25 +75,15 @@ def _forward(params: RegressionParams, x: torch.Tensor, hyper_eps: torch.Tensor,
 
 
 def elbo(params: RegressionParams, prior, x, y, hyper_eps, beta: float = 1.0):
-    """(beta * kl_hypers + kl_u + nll, nll): kl_u the classes summed and the
-    hypers averaged, nll ``gaussian_loss``'s."""
+    """(beta * kl_hypers + kl_u + nll, (nll,)), ``train.loop.gradient_step``'s
+    objective: kl_u the classes summed and the hypers averaged, nll
+    ``gaussian_loss``'s."""
     mu, var, (L, u_tril) = _forward(params, x, hyper_eps)
     nll = gaussian_loss(params.lik, mu, var, y)
     u_mean = params.u_mean[..., 0]
     kl = gpmath.mvn_kl(u_mean, u_tril, torch.zeros_like(u_mean), L)
     klu = torch.mean(torch.sum(kl, dim=-1))
-    return beta * kl_hypers(params.kernel, prior) + klu + nll, nll
-
-
-def step(params: RegressionParams, opt_state, prior, x, y, hyper_eps, *, opt, beta: float = 1.0):
-    """One Yogi step; returns (params, opt_state, loss, nll), the loss and nll
-    before the update, detached."""
-    leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
-    with torch.enable_grad():
-        total, nll = elbo(tree_unflatten(params, leaves), prior, x, y, hyper_eps, beta)
-    grads = torch.autograd.grad(total, leaves)
-    params, opt_state = opt.update(grads, opt_state, params)
-    return params, opt_state, total.detach(), nll.detach()
+    return beta * kl_hypers(params.kernel, prior) + klu + nll, (nll,)
 
 
 class RegressionDraws:
@@ -133,8 +124,9 @@ def regression(epochs=800, M=24, lr=1e-2, n_var_samples=3, beta=1.0, seed=0, log
     opt_state = opt.init(params)
     with MetricsLogger(log_dir) as logger:
         for e in range(epochs):
-            params, opt_state, loss, _ = step(params, opt_state, prior, x, y,
-                                              draws.hypers(n_var_samples), opt=opt, beta=beta)
+            h = draws.hypers(n_var_samples)
+            params, opt_state, loss, _ = gradient_step(
+                params, opt_state, lambda p: elbo(p, prior, x, y, h, beta), opt)
             if (e + 1) % 100 == 0:
                 logger.add_scalar("regression/loss", float(loss), step=e + 1)
     with torch.no_grad():

@@ -28,11 +28,18 @@ import torch
 from vargp_tpu_torch import data
 from vargp_tpu_torch.experiments.vargp_run import _log_dir
 from vargp_tpu_torch.models import vargp_retrain as R
-from vargp_tpu_torch.models.vargp import select_inducing
 from vargp_tpu_torch.ops.device import resolve_device
-from vargp_tpu_torch.train.loop import TrainHyperparams, make_optimizer, pad_dataset_to_device
+from vargp_tpu_torch.train.loop import (
+    GeneratorDraws,
+    TrainHyperparams,
+    epoch_blocks,
+    finite_pieces,
+    gradient_step,
+    make_optimizer,
+    pad_dataset_to_device,
+    step_block,
+)
 from vargp_tpu_torch.train.metrics import compute_accuracy
-from vargp_tpu_torch.train.optim import tree_leaves, tree_unflatten
 from vargp_tpu_torch.utils.checkpoint import save_chain
 from vargp_tpu_torch.utils.logging import MetricsLogger
 from vargp_tpu_torch.utils.prng import seed_everything, task_generator
@@ -58,35 +65,19 @@ def draw_noise(gen: torch.Generator, cfg: R.RetrainConfig, S: int, c: int,
     return noise
 
 
-class RetrainDraws:
+class RetrainDraws(GeneratorDraws):
     """A task's draws from one ``torch.Generator``, on its device:
     ``inducing`` (the new task's rows), ``init`` (kernel_eps, u_eps),
-    ``block`` (a train block's row indices and noise, step by step),
-    ``evaluation`` (one evaluation's hyper_eps and lik_eps for every
-    batch of the split) and ``final`` (the same for the accuracy after
-    the task)."""
+    ``block`` (a train block's row indices and noise, step by step, the
+    noise Retrain's with S chain rows and c frozen rows), ``evaluation``
+    (one evaluation's hyper_eps and lik_eps for every batch of the split)
+    and ``final`` (the same for the accuracy after the task)."""
 
-    def __init__(self, gen: torch.Generator):
-        self.gen = gen
-
-    def _normal(self, *shape):
-        return torch.randn(shape, generator=self.gen, device=self.gen.device)
-
-    def inducing(self, x: torch.Tensor, M: int, out_size: int) -> torch.Tensor:
-        return select_inducing(self.gen, x, M, out_size)
+    draw_noise = staticmethod(draw_noise)
 
     def init(self, cfg: R.RetrainConfig) -> dict:
         return {"kernel_eps": self._normal(cfg.in_size + 1),
                 "u_eps": self._normal(cfg.out_size, cfg.M, 1)}
-
-    def block(self, n_pad: int, batch_size: int, n_epochs: int, cfg: R.RetrainConfig, S: int,
-              c: int):
-        """Per epoch a permutation of the padded rows, then each step's noise."""
-        for _ in range(n_epochs):
-            perm = torch.randperm(n_pad, generator=self.gen, device=self.gen.device)
-            for s in range(n_pad // batch_size):
-                yield (perm[s * batch_size:(s + 1) * batch_size],
-                       draw_noise(self.gen, cfg, S, c, batch_size))
 
     def evaluation(self, cfg: R.RetrainConfig, batch_size: int) -> dict:
         H = 1 if cfg.map_est_hypers else cfg.n_var_samples
@@ -96,41 +87,14 @@ class RetrainDraws:
     final = evaluation
 
 
-def elbo_step(params, opt_state, frozen_prev, prior, x, y, w, noise, *, cfg: R.RetrainConfig,
-              opt, beta: float, n_train, device=None):
-    """One optimizer step on beta * kl_hypers + kl_u + (n_train / sum(w)) * nll.
-    Returns (params, opt_state, loss, (kl_hypers, kl_u, nll)), the loss and
-    its pieces taken before the update and detached.  ``device=None``
-    means the card."""
-    leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
-    with torch.enable_grad():
-        klh, klu, nll = R.loss(tree_unflatten(params, leaves), frozen_prev, prior, x, y, noise,
-                               cfg, weights=w, device=device)
-        scale = n_train / torch.clamp(torch.sum(w), min=1.0)
-        total = beta * klh + klu + scale * nll
-    grads = torch.autograd.grad(total, leaves, allow_unused=True)
-    # a leaf the loss does not read (log_logvar under MAP) has gradient 0
-    grads = [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)]
-    params, opt_state = opt.update(grads, opt_state, params)
-    return params, opt_state, total.detach(), (klh.detach(), klu.detach(), nll.detach())
-
-
-def train_block(params, opt_state, frozen_prev, prior, n_train, data_x, data_y, data_w, draws,
-                *, cfg: R.RetrainConfig, opt, beta: float, device=None):
-    """ELBO steps over a dataset padded with zero-weight rows
-    (``pad_dataset_to_device``), one per (row indices, noise) of ``draws``
-    (``RetrainDraws.block``).  The dataset stays on the device and no value
-    is read back between steps.  Returns (params, opt_state, losses
-    (steps,), pieces (steps, 3)), all on the device."""
-    dev = resolve_device(device)
-    losses, pieces = [], []
-    for idx, noise in draws:
-        params, opt_state, loss, aux = elbo_step(
-            params, opt_state, frozen_prev, prior, data_x[idx], data_y[idx], data_w[idx], noise,
-            cfg=cfg, opt=opt, beta=beta, n_train=n_train, device=dev)
-        losses.append(loss)
-        pieces.append(torch.stack(aux))
-    return params, opt_state, torch.stack(losses), torch.stack(pieces)
+def elbo(params, frozen_prev, prior, x, y, w, noise, *, cfg: R.RetrainConfig, beta: float,
+         n_train, device=None):
+    """``train.loop.gradient_step``'s objective: (beta * kl_hypers + kl_u +
+    (n_train / sum(w)) * nll, (kl_hypers, kl_u, nll))."""
+    klh, klu, nll = R.loss(params, frozen_prev, prior, x, y, noise, cfg, weights=w,
+                           device=device)
+    scale = n_train / torch.clamp(torch.sum(w), min=1.0)
+    return beta * klh + klu + scale * nll, (klh, klu, nll)
 
 
 def accuracy(params, ds, noise: dict, cfg: R.RetrainConfig, batch_size: int, *,
@@ -151,9 +115,8 @@ def train_task(draws, task_id: int, train_set, seen, cfg: R.RetrainConfig, hp: T
                prev_raw=(), kernel_prior_from=None, logger=None, *, device=None):
     """Train task ``task_id`` with the previous tasks' raw parameters
     ``prev_raw`` trainable again; returns (params, info).  Blocks of
-    epochs end on the evaluation cadence, each at most
-    ``hp.max_steps_per_dispatch`` steps' worth of whole epochs; every
-    ``hp.eval_interval`` epochs ``seen`` is evaluated and logged as
+    epochs end on the evaluation cadence (``train.loop.epoch_blocks``);
+    every ``hp.eval_interval`` epochs ``seen`` is evaluated and logged as
     ``task{t}/test/acc``.  A non-finite ELBO piece at an evaluation
     raises.  ``info`` holds the final accuracy on ``seen`` (on the draw
     source's ``final`` noise), the last step's pieces, steps_per_sec,
@@ -175,31 +138,28 @@ def train_task(draws, task_id: int, train_set, seen, cfg: R.RetrainConfig, hp: T
     S = sum(t.z.shape[-2] for t in params.tasks)
     c = sum(p.z.shape[-2] for p in frozen)
 
+    def step(params, opt_state, x, y, w, noise):
+        return gradient_step(params, opt_state, lambda p: elbo(
+            p, frozen, prior, x, y, w, noise, cfg=cfg, beta=hp.beta, n_train=n_train,
+            device=dev), opt)
+
     t_start = time.time()
-    steps, epoch, pieces = 0, 0, None
-    max_block = max(1, hp.max_steps_per_dispatch // max(steps_per_epoch, 1))
-    while epoch < hp.epochs:
-        to_eval = hp.eval_interval - (epoch % hp.eval_interval)
-        block = min(to_eval, hp.epochs - epoch, max_block)
-        params, opt_state, _, pieces = train_block(
-            params, opt_state, frozen, prior, n_train, data_x, data_y, data_w,
-            draws.block(n_pad, hp.batch_size, block, cfg, S, c),
-            cfg=cfg, opt=opt, beta=hp.beta, device=dev)
-        steps += block * steps_per_epoch
-        epoch += block
-        if epoch % hp.eval_interval == 0:
-            klh, klu, nll = pieces[-1].tolist()
-            if not all(np.isfinite(v) for v in (klh, klu, nll)):
-                raise FloatingPointError(
-                    f"non-finite ELBO at epoch {epoch}: kl_hypers={klh} kl_u={klu} nll={nll}")
+    steps, done, pieces = 0, 0, None
+    for n_epochs, done in epoch_blocks(hp, steps_per_epoch):
+        params, opt_state, _, pieces = step_block(
+            step, params, opt_state, draws.block(n_pad, hp.batch_size, n_epochs, cfg, S, c),
+            data_x, data_y, data_w)
+        steps += n_epochs * steps_per_epoch
+        if done % hp.eval_interval == 0:
+            finite_pieces(pieces, ("kl_hypers", "kl_u", "nll"), done)
             acc = accuracy(params, seen, draws.evaluation(cfg, hp.batch_size), cfg,
                            hp.batch_size, device=dev)
             if logger is not None:
-                logger.add_scalar(f"task{task_id}/test/acc", acc, step=epoch)
+                logger.add_scalar(f"task{task_id}/test/acc", acc, step=done)
     steps_per_sec = steps / max(time.time() - t_start, 1e-9)
     acc = accuracy(params, seen, draws.final(cfg, hp.batch_size), cfg, hp.batch_size, device=dev)
     return params, dict(acc=acc, pieces=None if pieces is None else pieces[-1].tolist(),
-                        steps_per_sec=steps_per_sec, steps=steps, epochs=epoch)
+                        steps_per_sec=steps_per_sec, steps=steps, epochs=done)
 
 
 def toy(epochs=5000, M=20, lr=1e-2, batch_size=512, beta=1.0, n_f=10, n_var_samples=3,

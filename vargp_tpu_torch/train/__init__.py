@@ -1,5 +1,6 @@
-"""Training: the optimizers, the ELBO step, the on-device train block,
-the evaluation, the early stopper and ``train_task``; counterpart of
+"""Training: the optimizers, the gradient step and the on-device train
+block every model uses, the evaluation, the early stopper and
+``train_task``; counterpart of
 ``vargp_tpu/train``.  The JAX package's ``make_update_fn`` (one dispatch
 per minibatch, ``scan_epoch=False``) is not ported."""
 

@@ -6,6 +6,11 @@ beta * kl_hypers + kl_u + (n_train / sum(w)) * nll (experiments/vargp.py
 of the reference); its gradient comes from ``models.vargp.loss``'s
 backward and the update from ``train.optim``.
 
+Every model the port trains takes its step (``gradient_step``), train
+block (``step_block``), draws' order (``block_draws``), blocks' schedule
+(``epoch_blocks``) and accuracy count (``count_correct``) from here;
+VAR-GP and the global SVGP also share the task loop (``fit``).
+
 Randomness comes from one ``torch.Generator`` on the device: per epoch one
 permutation of the padded dataset, per step the step's noise
 (``draw_noise``), in the order ``block_draws`` gives.  The train block
@@ -159,6 +164,28 @@ def _sharded_loss(params, prev, prior, x, y, w, noise, cfg, chain_mask, dev, mes
     return out.kl_hypers, out.kl_u, nll
 
 
+def gradient_step(params, opt_state, objective, opt, reduce=None):
+    """One optimizer step of any model on ``objective(params) -> (loss,
+    pieces)``: the gradient over the parameters' leaves (0 for a leaf the
+    loss does not read, log_logvar under MAP), then ``opt.update``.
+    ``reduce(grads, pieces) -> (grads, loss, pieces)`` runs between the
+    two: the sharded step sums there.  Returns (params, opt_state,
+    loss, pieces), the loss and pieces taken before the update, detached."""
+    with tracing.span("elbo_step"):
+        leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+        with torch.enable_grad():
+            loss, pieces = objective(tree_unflatten(params, leaves))
+        with tracing.span("backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)]
+        loss, pieces = loss.detach(), tuple(p.detach() for p in pieces)
+        if reduce is not None:
+            grads, loss, pieces = reduce(grads, pieces)
+        with tracing.span("update"):
+            params, opt_state = opt.update(grads, opt_state, params)
+        return params, opt_state, loss, pieces
+
+
 def elbo_step(params, opt_state, prev, prior, x, y, w, noise, *,
               cfg: V.VARGPConfig, opt, beta: float, n_train, chain_mask=None,
               device=None, mesh=None):
@@ -173,47 +200,57 @@ def elbo_step(params, opt_state, prev, prior, x, y, w, noise, *,
     over every rank, each class's kl_u over the data ranks, each row's nll
     over the model ranks), each rank differentiates its share, and the
     gradients are summed where their leaves are shared."""
-    with tracing.span("elbo_step"):
-        leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
-        p = tree_unflatten(params, leaves)
-        with torch.enable_grad():
-            if mesh is None:
-                klh, klu, nll = V.loss(p, prev, prior, x, y, noise, cfg, weights=w,
-                                       chain_mask=chain_mask, device=device)
-                scale = n_train / torch.clamp(torch.sum(w), min=1.0)
-                total = objective = beta * klh + klu + scale * nll
-            else:
-                klh, klu, nll = _sharded_loss(p, prev, prior, x, y, w, noise, cfg, chain_mask,
-                                              resolve_device(device), mesh)
-                w_sum = mesh.all_sum(torch.sum(w), "data", "sum w")
-                scale = n_train / torch.clamp(w_sum, min=1.0)
-                dp, mp = mesh.shape
-                objective = beta * klh / (dp * mp) + klu / dp + scale * nll / mp
-        with tracing.span("backward"):
-            grads = torch.autograd.grad(objective, leaves, allow_unused=True)
-        # a leaf the loss does not read (log_logvar under MAP) has gradient 0
-        grads = [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)]
-        if mesh is not None:
-            grads = mesh.sum_gradients(grads, params, cfg.out_size)
-            klu = mesh.all_sum(klu, "model", "sum kl_u")
-            nll = mesh.all_sum(nll, "data", "sum nll")
-            total = beta * klh + klu + scale * nll
-        with tracing.span("update"):
-            params, opt_state = opt.update(grads, opt_state, params)
-        return params, opt_state, total.detach(), (klh.detach(), klu.detach(), nll.detach())
+    w_sum = torch.sum(w) if mesh is None else mesh.all_sum(torch.sum(w), "data", "sum w")
+    scale = n_train / torch.clamp(w_sum, min=1.0)
+    if mesh is None:
+        def objective(p):
+            klh, klu, nll = V.loss(p, prev, prior, x, y, noise, cfg, weights=w,
+                                   chain_mask=chain_mask, device=device)
+            return beta * klh + klu + scale * nll, (klh, klu, nll)
+
+        return gradient_step(params, opt_state, objective, opt)
+
+    dp, mp = mesh.shape
+
+    def share(p):
+        klh, klu, nll = _sharded_loss(p, prev, prior, x, y, w, noise, cfg, chain_mask,
+                                      resolve_device(device), mesh)
+        return beta * klh / (dp * mp) + klu / dp + scale * nll / mp, (klh, klu, nll)
+
+    def job(grads, pieces):
+        klh, klu, nll = pieces
+        grads = mesh.sum_gradients(grads, params, cfg.out_size)
+        klu = mesh.all_sum(klu, "model", "sum kl_u")
+        nll = mesh.all_sum(nll, "data", "sum nll")
+        return grads, beta * klh + klu + scale * nll, (klh, klu, nll)
+
+    return gradient_step(params, opt_state, share, opt, job)
 
 
-def block_draws(gen: torch.Generator, n_pad: int, batch_size: int, n_epochs: int,
-                cfg: V.VARGPConfig, n_prev: int):
+def block_draws(gen: torch.Generator, n_pad: int, batch_size: int, n_epochs: int, noise):
     """Yield (batch row indices, noise) for every step of a train block, in
-    the order the block draws them from ``gen``."""
-    steps = n_pad // batch_size
+    the order the block draws them from ``gen``: per epoch one permutation
+    of the ``n_pad`` rows, then ``noise()`` for each of its steps."""
     for _ in range(n_epochs):
         perm = torch.randperm(n_pad, generator=gen, device=gen.device)
-        for s in range(steps):
-            yield perm[s * batch_size:(s + 1) * batch_size], draw_noise(
-                gen, cfg, n_prev, batch_size
-            )
+        for s in range(n_pad // batch_size):
+            yield perm[s * batch_size:(s + 1) * batch_size], noise()
+
+
+def step_block(step, params, opt_state, draws, data_x, data_y, data_w, rows=slice(None)):
+    """Every model's train block: one ``step(params, opt_state, x, y, w,
+    noise)`` per (row indices, noise) of ``draws`` on the dataset's rows
+    ``idx[rows]``, with no host read between steps.  Returns (params,
+    opt_state, losses (steps,), pieces (steps, k)), on the device."""
+    losses, pieces = [], []
+    with tracing.span("train_block"):
+        for idx, noise in draws:
+            idx = idx[rows]
+            params, opt_state, loss, aux = step(params, opt_state, data_x[idx], data_y[idx],
+                                                data_w[idx], noise)
+            losses.append(loss)
+            pieces.append(torch.stack(aux))
+    return params, opt_state, torch.stack(losses), torch.stack(pieces)
 
 
 def train_block(params, opt_state, prev, prior, chain_mask, n_train, data_x, data_y,
@@ -222,30 +259,40 @@ def train_block(params, opt_state, prev, prior, chain_mask, n_train, data_x, dat
     """``n_epochs`` epochs of ELBO steps over a dataset padded to a
     multiple of ``batch_size`` with zero-weight rows (``pad_dataset_to_device``).
     The steps' (row indices, noise) are ``draws`` when given, else
-    ``block_draws`` from ``gen``.  Returns (params, opt_state, losses
+    ``GeneratorDraws(gen).block``'s.  Returns (params, opt_state, losses
     (steps,), pieces (steps, 3)), all on the device.  Under ``mesh`` every
     rank holds the dataset whole and steps on its rows of each batch."""
     dev = resolve_device(device)
     n_pad = data_x.shape[0]
     if n_pad % batch_size:
         raise ValueError(f"{n_pad} dataset rows are not a multiple of {batch_size}")
-    rows = slice(None) if mesh is None else mesh.row_slice(batch_size)
     if draws is None:
         if gen.device.type != dev.type:
             raise ValueError(f"generator on {gen.device}, the block runs on {dev}")
-        draws = block_draws(gen, n_pad, batch_size, n_epochs, cfg, len(prev))
-    losses, pieces = [], []
-    with tracing.span("train_block"):
-        for idx, noise in draws:
-            idx = idx[rows]
-            params, opt_state, loss, aux = elbo_step(
-                params, opt_state, prev, prior, data_x[idx], data_y[idx], data_w[idx], noise,
-                cfg=cfg, opt=opt, beta=beta, n_train=n_train, chain_mask=chain_mask,
-                device=dev, mesh=mesh,
-            )
-            losses.append(loss)
-            pieces.append(torch.stack(aux))
-    return params, opt_state, torch.stack(losses), torch.stack(pieces)
+        draws = GeneratorDraws(gen).block(n_pad, batch_size, n_epochs, cfg, len(prev))
+
+    def step(params, opt_state, x, y, w, noise):
+        # looked up at each step: a caller may replace the module's elbo_step
+        return elbo_step(params, opt_state, prev, prior, x, y, w, noise, cfg=cfg, opt=opt,
+                         beta=beta, n_train=n_train, chain_mask=chain_mask, device=dev,
+                         mesh=mesh)
+
+    rows = slice(None) if mesh is None else mesh.row_slice(batch_size)
+    return step_block(step, params, opt_state, draws, data_x, data_y, data_w, rows)
+
+
+def epoch_blocks(hp: TrainHyperparams, steps_per_epoch: int):
+    """Yield (epochs of a train block, epochs done after it): blocks that
+    end on every multiple of ``hp.eval_interval`` and at ``hp.epochs``, each
+    at most ``hp.max_steps_per_dispatch`` steps' worth of whole epochs (at
+    least one), as the JAX package caps its dispatches."""
+    cadence = max(hp.eval_interval, 1)
+    cap = max(1, hp.max_steps_per_dispatch // max(steps_per_epoch, 1))
+    done = 0
+    while done < hp.epochs:
+        n = min(cadence - done % cadence, hp.epochs - done, cap)
+        done += n
+        yield n, done
 
 
 def pad_dataset_to_device(data, targets, batch_size: int, n_rows: int | None = None,
@@ -327,29 +374,35 @@ def eval_predictions(params, prev, chain_mask, xs, draws: dict, cfg: V.VARGPConf
         yield softmax_predict(f_mean, f_var, lik)
 
 
+def count_correct(probs, ys, ws) -> torch.Tensor:
+    """The weighted count of rows whose most probable class is the label
+    over the class probabilities ``probs`` yields (batch i against ys[i],
+    ws[i]), on the device.  Any non-finite probability makes it NaN: the
+    argmax of NaN probabilities is still an index, so a count alone would
+    hide a diverged posterior (the reference asserts on the probabilities)."""
+    correct = ws.new_zeros(())
+    ok = torch.ones((), dtype=torch.bool, device=ws.device)
+    for i, p in enumerate(probs):
+        hits = (torch.argmax(p, dim=-1) == ys[i]).to(torch.float32) * ws[i]
+        ok = ok & torch.all(torch.isfinite(p))
+        correct = correct + torch.sum(hits)
+    return torch.where(ok, correct, torch.full_like(correct, float("nan")))
+
+
 def make_device_eval_fn(cfg: V.VARGPConfig, hp: TrainHyperparams | None = None, mesh=None):
     """Whole-split accuracy: ``eval_acc(params, prev, chain_mask, xs, ys,
     ws, draws, device=None)`` over stacked batches xs (K, B, D), ys / ws
     (K, B) returns (correct count, weight count), tensors on the device.
 
-    The count and an "every probability finite" flag accumulate on the
-    device, so a split costs the caller one host read.  A non-finite
-    probability anywhere makes the count NaN: the argmax of NaN
-    probabilities is still an index, so a count alone would hide a
-    diverged posterior (the reference asserts on the probabilities).
+    The count accumulates on the device (``count_correct``: NaN after a
+    non-finite probability), so a split costs the caller one host read.
     Under ``mesh`` the stacks hold this rank's rows of each batch, and the
     counts are summed over the data axis (a NaN reaches every rank)."""
 
     def eval_acc(params, prev, chain_mask, xs, ys, ws, draws, *, device=None):
         with torch.no_grad():
-            correct = xs.new_zeros(())
-            ok = torch.ones((), dtype=torch.bool, device=xs.device)
-            for i, probs in enumerate(eval_predictions(params, prev, chain_mask, xs, draws, cfg,
-                                                       hp, device=device, mesh=mesh)):
-                hits = (torch.argmax(probs, dim=-1) == ys[i]).to(torch.float32) * ws[i]
-                ok = ok & torch.all(torch.isfinite(probs))
-                correct = correct + torch.sum(hits)
-            correct = torch.where(ok, correct, torch.full_like(correct, float("nan")))
+            correct = count_correct(eval_predictions(params, prev, chain_mask, xs, draws, cfg,
+                                                     hp, device=device, mesh=mesh), ys, ws)
             if mesh is None:
                 return correct, torch.sum(ws)
             counts = mesh.all_sum(torch.stack([correct, torch.sum(ws)]), "data", "sum counts")
@@ -397,6 +450,80 @@ def _eval_batches(hp: TrainHyperparams, ds: ArrayDataset) -> int | None:
     return max(hp.pad_eval_batches, need)
 
 
+SPLITS = ("train", "val", "test")
+
+
+def stack_splits(hp: TrainHyperparams, splits, *, device, rows=slice(None)):
+    """({split: (``stack_eval_set``'s stacks cut to ``rows``, the split's
+    length)}, the most batches of a split) of the train, val and test sets."""
+    stacks = {
+        split: (tuple(a[:, rows] for a in stack_eval_set(
+            ds, hp.batch_size, _eval_batches(hp, ds), device=device)), len(ds))
+        for split, ds in zip(SPLITS, splits)
+    }
+    return stacks, max(xs.shape[0] for (xs, _, _), _ in stacks.values())
+
+
+def split_accuracies(count, stacks, task_id: int) -> dict:
+    """{``task{t}/{split}/acc``: accuracy} of the stacks, one host read a
+    split of ``count(xs, ys, ws)``, its correct count; NaN raises."""
+    accs = {}
+    for split in SPLITS:
+        (xs, ys, ws), n = stacks[split]
+        correct = float(count(xs, ys, ws))
+        if not np.isfinite(correct):
+            raise AssertionError("Found NaNs")  # the JAX package's assert, kept under -O
+        accs[f"task{task_id}/{split}/acc"] = correct / n
+    return accs
+
+
+def finite_pieces(pieces, names, epoch: int) -> list:
+    """The last step's ELBO pieces read back; any non-finite one raises."""
+    values = pieces[-1].tolist()
+    if not all(np.isfinite(v) for v in values):
+        raise FloatingPointError(f"non-finite ELBO at epoch {epoch}: " + " ".join(
+            f"{n}={v}" for n, v in zip(names, values)))
+    return values
+
+
+def fit(params, opt_state, block, evaluate, hp: TrainHyperparams, task_id: int,
+        steps_per_epoch: int, names, logger=None) -> dict:
+    """The VAR-GP and global ``train_task``'s loop: ``block(params,
+    opt_state, n_epochs)`` (``step_block``'s outputs) on ``epoch_blocks``,
+    ``evaluate(params)`` (``split_accuracies``) on the cadence and at the
+    last epoch, where the finite ELBO pieces (``names``) and accuracies are
+    logged and the validation accuracy goes to an ``EarlyStopper``.
+    Returns ``info``: the best evaluation's params, acc_summary and step
+    (its epoch), and the run's steps_per_sec, steps and epochs."""
+    stopper = EarlyStopper(patience=hp.patience)
+    t_start = time.time()
+    steps = done = 0
+    for n_epochs, done in epoch_blocks(hp, steps_per_epoch):
+        params, opt_state, _, pieces = block(params, opt_state, n_epochs)
+        steps += n_epochs * steps_per_epoch
+        if done < hp.epochs and done % max(hp.eval_interval, 1):
+            continue
+        accs = evaluate(params)
+        values = finite_pieces(pieces, names, done)
+        if logger is not None:
+            for k, v in zip(names, values):
+                logger.add_scalar(f"task{task_id}/loss/{k}", v, step=done)
+            for k, v in accs.items():
+                logger.add_scalar(k, v, step=done)
+        # The payload holds the parameters themselves: the optimizer's
+        # update returns new tensors and never writes into its inputs, so
+        # no later step changes them (the JAX package copies them because
+        # its update donates its input buffers).
+        stopper(accs[f"task{task_id}/val/acc"],
+                lambda _p=params, _a=accs, _e=done: dict(params=_p, acc_summary=_a, step=_e))
+        if stopper.is_done():
+            break
+    info = stopper.info() or dict(params=params, acc_summary={}, step=hp.epochs)
+    info["steps_per_sec"] = steps / max(time.time() - t_start, 1e-9)
+    info["steps"], info["epochs"] = steps, done
+    return info
+
+
 # ---------------------------------------------------------------------------
 # train_task
 # ---------------------------------------------------------------------------
@@ -410,7 +537,9 @@ class GeneratorDraws:
     parameters' noise), ``block`` (a train block's row indices and noise,
     step by step) and ``evaluation`` (one evaluation's noise, shared by
     its train, validation and test splits, as the JAX package shares one
-    key)."""
+    key).  A model's source differs in its ``draw_noise``."""
+
+    draw_noise = staticmethod(draw_noise)
 
     def __init__(self, gen: torch.Generator):
         self.gen = gen
@@ -434,9 +563,11 @@ class GeneratorDraws:
             ]
         return out
 
-    def block(self, n_pad: int, batch_size: int, n_epochs: int, cfg: V.VARGPConfig,
-              n_prev: int):
-        return block_draws(self.gen, n_pad, batch_size, n_epochs, cfg, n_prev)
+    def block(self, n_pad: int, batch_size: int, n_epochs: int, cfg, *shape):
+        """``block_draws``, each step's noise ``draw_noise(gen, cfg, *shape,
+        batch_size)``: for VAR-GP ``shape`` is the chain's length."""
+        return block_draws(self.gen, n_pad, batch_size, n_epochs,
+                           lambda: self.draw_noise(self.gen, cfg, *shape, batch_size))
 
     def evaluation(self, cfg_eval: V.VARGPConfig, n_batches: int, batch_size: int,
                    per_batch: bool) -> dict:
@@ -460,16 +591,11 @@ def train_task(gen, task_id: int, train_set: ArrayDataset, val_set: ArrayDataset
     card), or an int seed for one.  ``draws`` replaces the draw source
     (``GeneratorDraws(gen)``).  ``prev_chain`` holds the best parameters
     of every earlier task: the frozen chain, the kernel prior and, under
-    DKL, phi's warm start come from it.  The run trains in blocks of
-    epochs (``train_block``) that end on the evaluation cadence, each at
-    most ``hp.max_steps_per_dispatch`` steps' worth of whole epochs; at
-    each evaluation it logs the ELBO pieces and the three splits'
-    accuracies and feeds the validation accuracy to an ``EarlyStopper``.
+    DKL, phi's warm start come from it.  The task runs ``train_block``
+    and the evaluation through ``fit``, whose ``info`` it returns.
     ``shared`` carries the optimizer and the evaluation function across a
     run's tasks.  ``seed`` is the JAX signature's data seed, read only by
-    the per-minibatch mode, which is not ported.  ``info`` holds the best
-    evaluation's params, acc_summary and step (its epoch), and the run's
-    steps_per_sec, steps and epochs.
+    the per-minibatch mode, which is not ported.
 
     ``mesh`` (``parallel.make_mesh``) runs the task sharded: ``gen`` is
     the task's generator seeded alike on every rank (or its seed), and
@@ -536,94 +662,29 @@ def train_task(gen, task_id: int, train_set: ArrayDataset, val_set: ArrayDataset
     data_x, data_y, data_w = pad_dataset_to_device(
         train_set.data, train_set.targets, hp.batch_size, n_rows=hp.pad_data_rows, device=dev)
     n_pad = data_x.shape[0]
-    steps_per_epoch = n_pad // hp.batch_size
 
     eval_acc = shared.setdefault("eval_acc", make_device_eval_fn(cfg, hp, mesh))
     cfg_eval = V.eval_budget_cfg(cfg, n_f=hp.eval_n_f, n_var_samples=hp.eval_n_var_samples)
     rows = slice(None) if mesh is None else mesh.row_slice(hp.batch_size)
-    eval_stacks = {
-        split: (tuple(a[:, rows] for a in stack_eval_set(
-            ds, hp.batch_size, _eval_batches(hp, ds), device=dev)), len(ds))
-        for split, ds in (("train", train_set), ("val", val_set), ("test", test_set))
-    }
-    n_eval_batches = max(xs.shape[0] for (xs, _, _), _ in eval_stacks.values())
+    stacks, n_eval_batches = stack_splits(hp, (train_set, val_set, test_set), device=dev,
+                                          rows=rows)
 
-    def _acc(split, ev):
-        (xs, ys, ws), n = eval_stacks[split]
-        correct, _ = eval_acc(params, prev, chain_mask, xs, ys, ws, ev, device=dev)
-        correct = float(correct)
-        if not np.isfinite(correct):
-            raise AssertionError("Found NaNs")  # the JAX package's assert, kept under -O
-        return correct / n
-
-    stopper = EarlyStopper(patience=hp.patience)
-    t_start = time.time()
-    steps = 0
-    epoch = -1
-    last_eval = 0  # epochs completed at the most recent evaluation
-    max_block_epochs = max(1, hp.max_steps_per_dispatch // max(steps_per_epoch, 1))
-    while epoch + 1 < hp.epochs:
-        # a block ends on the evaluation cadence even when
-        # max_steps_per_dispatch caps it below eval_interval
-        to_eval = hp.eval_interval - ((epoch + 1) - last_eval)
-        block = min(max(to_eval, 1), hp.epochs - (epoch + 1), max_block_epochs)
-        params, opt_state, _, pieces = train_block(
+    def block(params, opt_state, n_epochs):
+        return train_block(
             params, opt_state, prev, prior, chain_mask, n_train, data_x, data_y, data_w, None,
-            cfg=cfg, opt=opt, beta=hp.beta, batch_size=hp.batch_size, n_epochs=block,
-            device=dev, draws=draws.block(n_pad, hp.batch_size, block, cfg, len(prev)),
-            mesh=mesh,
-        )
-        steps += block * steps_per_epoch
-        epoch += block
+            cfg=cfg, opt=opt, beta=hp.beta, batch_size=hp.batch_size, n_epochs=n_epochs,
+            device=dev, draws=draws.block(n_pad, hp.batch_size, n_epochs, cfg, len(prev)),
+            mesh=mesh)
 
-        if (epoch + 1) - last_eval >= hp.eval_interval or epoch + 1 >= hp.epochs:
-            last_eval = epoch + 1
-            ev = draws.evaluation(cfg_eval, n_eval_batches, hp.batch_size,
-                                  hp.eval_resample_per_batch)
-            train_acc = _acc("train", ev)
-            val_acc = _acc("val", ev)
-            test_acc = _acc("test", ev)
+    def evaluate(params):
+        ev = draws.evaluation(cfg_eval, n_eval_batches, hp.batch_size,
+                              hp.eval_resample_per_batch)
+        return split_accuracies(
+            lambda xs, ys, ws: eval_acc(params, prev, chain_mask, xs, ys, ws, ev, device=dev)[0],
+            stacks, task_id)
 
-            klh, klu, nll = pieces[-1].tolist()
-            if not all(np.isfinite(v) for v in (klh, klu, nll)):
-                raise FloatingPointError(
-                    f"non-finite ELBO at epoch {epoch + 1}: "
-                    f"kl_hypers={klh} kl_u={klu} nll={nll}"
-                )
-            scalars = {
-                f"task{task_id}/loss/kl_hypers": klh,
-                f"task{task_id}/loss/kl_u": klu,
-                f"task{task_id}/loss/lik": nll,
-                f"task{task_id}/train/acc": train_acc,
-                f"task{task_id}/val/acc": val_acc,
-                f"task{task_id}/test/acc": test_acc,
-            }
-            if logger is not None:
-                for k, v in scalars.items():
-                    logger.add_scalar(k, v, step=epoch + 1)
-
-            # The payload holds the parameters themselves: the optimizer's
-            # update returns new tensors and never writes into its inputs,
-            # so no later step changes them (the JAX package copies them
-            # because its update donates its input buffers).
-            stopper(
-                val_acc,
-                lambda _p=params, _e=epoch, _t=train_acc, _v=val_acc, _s=test_acc: dict(
-                    params=_p,
-                    acc_summary={
-                        f"task{task_id}/train/acc": _t,
-                        f"task{task_id}/val/acc": _v,
-                        f"task{task_id}/test/acc": _s,
-                    },
-                    step=_e + 1,
-                ),
-            )
-            if stopper.is_done():
-                break
-
-    info = stopper.info() or dict(params=params, acc_summary={}, step=hp.epochs)
-    info["steps_per_sec"] = steps / max(time.time() - t_start, 1e-9)
-    info["steps"], info["epochs"] = steps, epoch + 1
+    info = fit(params, opt_state, block, evaluate, hp, task_id, n_pad // hp.batch_size,
+               ("kl_hypers", "kl_u", "lik"), logger)
     if logger is not None:
         for k, v in info.get("acc_summary", {}).items():
             logger.add_scalar(f"{k}_best", v, step=info.get("step", 0))

@@ -12,8 +12,10 @@ Spans mark the layer boundaries of a ``predict`` call and an ELBO step:
                    map phi, nested in ``posterior`` or ``marginal``
   ``likelihood``   ``softmax_predict`` in ``predict``, ``softmax_loss`` in
                    ``loss``
-  ``train_block``  one block of ``train.loop.train_block``
-  ``elbo_step``    one ``train.loop.elbo_step``; ``posterior``,
+  ``train_block``  one train block of any model (``train.loop.step_block``)
+  ``elbo_step``    one step of any model (``train.loop.gradient_step``:
+                   VAR-GP's, the global SVGP's, Retrain's and the
+                   regression's); under VAR-GP ``posterior``,
                    ``marginal`` and ``likelihood`` nest in it, and so do
   ``backward``     its ``torch.autograd.grad``
   ``update``       its ``opt.update``
