@@ -39,7 +39,12 @@ result) on a failure:
    marginal's own operands, against the dense f32 product and float64
    (within twice the dense product's error; a 1xTF32 control must fail
    that limit), and with NaN filled above L's diagonal, finite and bitwise
-   its product with tril(L);
+   its product with tril(L); K10 (marginal_moments, W's readers: f_mean,
+   diag(W^T W), diag(C^T C) in one pass) at MOMENTS_SHAPES on the
+   marginal's own operands, one launch a call, against the dense f32 chain
+   and float64 (f_mean and f_var within twice the chain's error; a chain
+   with C in 1xTF32 must fail that limit on f_var), and with NaN filled
+   above w's diagonals, finite and bitwise its result on tril(w);
 4. the forward path: ``loss`` and ``predict`` of the flagship VAR-GP model
    (A, Split-MNIST task 4: a 5-task chain, M=60, 10 classes, D=784, B=512,
    3 hyper samples, 10 function samples; random weights from a numpy seed)
@@ -128,7 +133,8 @@ result) on a failure:
    B's, K4 at A's, B's and the evaluation's, K5's K_zz and K_zx at C's and
    the evaluation's, each with both bounds, 3xTF32 and f32, and the
    effective TFLOP/s; K9 at TRI_MM_SHAPES beside the dense
-   ``torch.matmul``, which is also its plain version; all also cold: a 256 MB buffer
+   ``torch.matmul``, which is also its plain version; K10 at
+   MOMENTS_SHAPES beside the dense chain, its plain version; all also cold: a 256 MB buffer
    written between calls, CUDA events around each; K3 also at the
    diagonal blocks of A's, B's and the analysis's factorisations and at
    G = 200, each beside ``torch.linalg.cholesky`` on the same view; K6
@@ -182,7 +188,9 @@ result) on a failure:
    into the single-device template.  A rank that fails or outlives its
    timeout fails the script.  ``python3 chip_smoke.py --phases=sharded``
    runs phases 8 and 15 alone and prints no result line;
-   ``--phases=tri_mm`` runs K9's checks and times alone, the same way.
+   ``--phases=tri_mm`` runs K9's checks and times alone, the same way;
+   ``--phases=marginal_moments`` K10's, after a profile of the dense chain
+   it replaces at P-MNIST's predict shape.
 
 The line before the last two is one JSON object ``{"kernels": [...]}``; then
 the card's ``nvidia-smi`` name and power limit; the last line is
@@ -363,6 +371,20 @@ TRI_MM_SHAPES = {
     "P-MNIST evaluation": (PMNIST_LAST["H"], PMNIST_LAST["O"],
                            PMNIST_LAST["n_tasks"] * PMNIST_LAST["M"], PMNIST_LAST["B"]),
     "ragged": (2, 3, 250, 200),
+}
+
+# K10 (marginal_moments, W's readers: f_mean, diag(W^T W), diag(C^T C)) at
+# (H, O, T, M, B): the P-MNIST and S-MNIST cells' predict calls (H = 20),
+# P-MNIST's evaluation (H = 3), and a ragged batch (B = 301, a partial strip
+# and W's 4-byte copies) beside M = 50 (no multiple of 4: w's 4-byte copies)
+MOMENTS_SHAPES = {
+    "P-MNIST predict": (ANALYSIS["n_var_samples"], PMNIST_LAST["O"], PMNIST_LAST["n_tasks"],
+                        PMNIST_LAST["M"], ANALYSIS["batch_size"]),
+    "S-MNIST predict": (ANALYSIS["n_var_samples"], FLAGSHIP["O"], FLAGSHIP["n_tasks"],
+                        FLAGSHIP["M"], ANALYSIS["batch_size"]),
+    "P-MNIST evaluation": (PMNIST_LAST["H"], PMNIST_LAST["O"], PMNIST_LAST["n_tasks"],
+                           PMNIST_LAST["M"], PMNIST_LAST["B"]),
+    "ragged": (2, 3, 5, 50, 301),
 }
 
 # Tolerances, each against the plain version on the same card and inputs.
@@ -1005,6 +1027,117 @@ def check_tri_mm(dev) -> tuple:
     return err, f64, cases
 
 
+def moments_inputs(rng, H, O, T, M, B, dev):
+    """K10's operands as the predictive marginal makes them: W = L^-1 K_zx
+    by K9 from tri_mm_inputs' way (K1, the jitter, the blocked
+    factorisation, K4 at D = 784), the factored posterior's v and w from a
+    random u_mean and a u_tril unpacked from its vector (w lower
+    triangular), and Kxx = gamma2 (H, 1, 1)."""
+    from vargp_tpu_torch.gpmath import add_jitter, ar_joint_posterior_factored, vec2tril
+    from vargp_tpu_torch.ops import dispatch
+    from vargp_tpu_torch.ops.cuda.cross_gram import cross_gram
+    from vargp_tpu_torch.ops.cuda.sym_gram import sym_gram
+    from vargp_tpu_torch.ops.cuda.tri_mm import tri_mm
+
+    S = T * M
+    z, x, invs, invs2, gamma2 = gram_inputs(rng, O, S, FLAGSHIP["D"], H, B, dev)
+    L, L_inv = dispatch.chol_and_inv(add_jitter(sym_gram(z, invs, gamma2)))
+    t = lambda a: torch.tensor(a.astype(np.float32), device=dev)  # noqa: E731
+    u_means = [t(rng.standard_normal((O, M, 1)) * 0.5) for _ in range(T)]
+    u_trils = [vec2tril(t(rng.standard_normal((O, M * (M + 1) // 2)) * 0.1), M) for _ in range(T)]
+    post = ar_joint_posterior_factored(L, L_inv, u_means, u_trils)
+    W = tri_mm(L_inv.contiguous(), cross_gram(z, x, invs2, gamma2))
+    return W, post.v.contiguous(), post.w.contiguous(), gamma2[:, None, None].contiguous()
+
+
+def check_marginal_moments(dev) -> tuple:
+    """K10 at each MOMENTS_SHAPES shape on the marginal's own operands: one
+    launch a call; against its plain version (the dense chain the marginal
+    took before it) and against float64, f_mean and f_var each within
+    F64_RATIO times the f32 chain's error (a chain whose C_t = w_t^T W_t is
+    1xTF32 must fail that limit on f_var); with NaN filled into w's strictly
+    upper triangles, finite and bitwise its result on tril(w).  Returns the
+    largest error against the plain version (relative to the largest
+    f_var), the float64 errors and each shape's timing case."""
+    from vargp_tpu_torch.ops.cuda import build
+    from vargp_tpu_torch.ops.cuda.marginal_moments import marginal_moments, marginal_moments_plain
+
+    def chain_1xtf32(W, v, w, kxx):  # the chain with its task products in one TF32 term
+        T, M = w.shape[-3], w.shape[-1]
+        C = torch.matmul(tf32(w.transpose(-1, -2)), tf32(W.reshape(*W.shape[:-2], T, M, -1)))
+        return (torch.einsum("...mi,...mb->...b", v, W),
+                torch.clamp(kxx - torch.sum(W * W, dim=-2) + torch.sum(C * C, dim=(-3, -2)),
+                            min=0.0))
+
+    rng = np.random.default_rng(SEED + 10)
+    err, f64, cases = 0.0, {}, {}
+    for label, (H, O, T, M, B) in MOMENTS_SHAPES.items():
+        args = moments_inputs(rng, H, O, T, M, B, dev)
+        got, n = launched(marginal_moments, *args)
+        if n != {"vargp_marginal_moments": 1}:
+            raise AssertionError(f"marginal_moments at {label}: launches {n}, expected one")
+        plain = marginal_moments_plain(*args)
+        scale = float(plain[1].abs().max())
+        e = max(max_abs_err(a, b) for a, b in zip(got, plain))
+        check(f"marginal_moments (K10) at {label} {(H, O, T, M, B)}, against the f32 chain", e,
+              TOL_GRAM * scale, scale)
+        err = max(err, e / scale)
+        ref = marginal_moments_plain(*(a.double() for a in args))
+        control = chain_1xtf32(*args)
+        f64[label] = {}
+        for i, name in enumerate(("f_mean", "f_var")):
+            errs = {"kernel": max_abs_err(got[i], ref[i]), "plain_f32": max_abs_err(plain[i], ref[i]),
+                    "control_1xtf32": max_abs_err(control[i], ref[i])}
+            limit = F64_RATIO * errs["plain_f32"]
+            print(f"  marginal_moments (K10) at {label}, {name} against float64: max abs err kernel "
+                  f"{errs['kernel']:.3e}, f32 chain {errs['plain_f32']:.3e}, 1xTF32 C control "
+                  f"{errs['control_1xtf32']:.3e} (limit {limit:.3e})")
+            if not errs["kernel"] <= limit:
+                raise AssertionError(f"marginal_moments at {label}: {name} {errs['kernel']} from "
+                                     f"float64, above {F64_RATIO}x the f32 chain's "
+                                     f"{errs['plain_f32']}")
+            if name == "f_var" and not errs["control_1xtf32"] > limit:
+                raise AssertionError(f"marginal_moments at {label}: the 1xTF32 control passed the "
+                                     f"float64 limit {limit}: the check cannot tell C in f32 "
+                                     "from C in TF32")
+            f64[label][name] = errs
+        W, v, w, kxx = args
+        upper = torch.ones(M, M, dtype=torch.bool, device=dev).triu(1)
+        tril_got = marginal_moments(W, v, torch.tril(w), kxx)
+        nan_got = marginal_moments(W, v, w.masked_fill(upper, float("nan")), kxx)
+        torch.cuda.synchronize()
+        if not all(bool(torch.isfinite(a).all()) and torch.equal(a, b) and torch.equal(b, c)
+                   for a, b, c in zip(nan_got, tril_got, got)):
+            raise AssertionError(f"marginal_moments at {label}: with NaN above w's diagonal the "
+                                 "result is not finite or not bitwise its result on tril(w)")
+        print(f"  marginal_moments (K10) at {label}: NaN above w's diagonal: finite, bitwise the "
+              "tril(w) result")
+        plain_fn = functools.partial(marginal_moments_plain, *args)
+        # one_kernel off: where W or w goes in padded, the copies' launches are the call's too;
+        # the chain's CUDA-event time beside K10's event_ms, where the host sets both paces
+        cases[label] = dict(
+            shape=[H, O, T, M, B], fn=functools.partial(marginal_moments, *args),
+            plain=plain_fn, plain_event_ms=time_ms(plain_fn), one_kernel=False,  # library too
+            **work(build.cost("marginal_moments", *(a.shape for a in args))))
+    return err, f64, cases
+
+
+def profile_moments_chain(dev) -> dict:
+    """``utils.profiling.profile_fn`` on the dense chain that K10 replaces
+    (the marginal after W, as the parent tree ran it) at P-MNIST's predict
+    shape: its device events by name, each one's ms per call, and the sum."""
+    from vargp_tpu_torch.ops.cuda.marginal_moments import marginal_moments_plain
+    from vargp_tpu_torch.utils.profiling import profile_fn
+
+    args = moments_inputs(np.random.default_rng(SEED + 12), *MOMENTS_SHAPES["P-MNIST predict"], dev)
+    prof = profile_fn(marginal_moments_plain, *args, iters=10, top=20)
+    print(f"  the dense chain at P-MNIST predict {MOMENTS_SHAPES['P-MNIST predict']}: "
+          f"{prof['events_per_call']:.2f} events, {prof['busy_ms']:.4f} device ms a call")
+    for k, v in prof["top"].items():
+        print(f"    {v:.5f} ms  {prof['launches_per_call'].get(k, 0):.1f}x  {k}")
+    return prof
+
+
 def check_chol_kernels(dev):
     """K8, K7 and K6 against their plain versions on the card: K8 at
     (30, 128, 128) and (200, 128, 128); K7 and K6 at A's and B's shapes, at
@@ -1076,7 +1209,7 @@ COUNTERS = {
     "rbf_gram": ("vargp_rbf_gram", "vargp_rbf_gram_sym", "vargp_rbf_gram_small"),
     "rbf_gram_sym": ("vargp_rbf_gram_sym",), "chol_inv": ("vargp_chol_inv",),
     "cholesky": ("vargp_chol",), "diag_chol_chunked": ("vargp_diag_chol_chunked",),
-    "tri_mm": ("vargp_tri_mm",),
+    "tri_mm": ("vargp_tri_mm",), "marginal_moments": ("vargp_marginal_moments",),
 }
 
 
@@ -1191,7 +1324,8 @@ def check_forward(name, dev, route="default"):
         # the marginal of loss and of predict takes K9 for W = L^-1 K_zx (the
         # flagship's parameters record no gradient) wherever the posterior
         # keeps L^-1 factored; the solve route's materialised one does not
-        want["tri_mm"] = 0 if route == "solve" else 2
+        # and W's readers take K10 (marginal_moments) there too
+        want["tri_mm"] = want["marginal_moments"] = 0 if route == "solve" else 2
         if launches != want:
             raise AssertionError(f"{name}: launches {launches} on the forward path, expected {want}")
         check_outputs("card", pieces, probs, TRAIN[name]["shape"])
@@ -1277,7 +1411,8 @@ def check_analysis(dev):
     # each cell's posterior builds K_zz (K5, symmetric) and its factor (K3
     # three times) once; each batch launches K_zx (K5)
     want.update(rbf_gram=n_batches + n_cells, rbf_gram_sym=n_cells, diag_chol=3 * n_cells,
-                tri_mm=n_batches)  # and each batch's W = L^-1 K_zx (K9)
+                tri_mm=n_batches,  # and each batch's W = L^-1 K_zx (K9)
+                marginal_moments=n_batches)  # and W's readers (K10)
     if launches != want:
         raise AssertionError(f"analysis: launches {launches}, expected {want}")
 
@@ -1411,11 +1546,11 @@ def check_protocol(dev, smi):
                              f" expected >= {pr['min_val_acc']}")
     # every step and every evaluated split builds one posterior (K1, K3 x 3)
     # and every step and evaluated batch one K_zx (K4); every evaluated batch
-    # (no gradient) W = L^-1 K_zx by K9
+    # (no gradient) W = L^-1 K_zx by K9 and W's readers by K10
     want = {k: 0 for k in counters()}
     n_post = rec["steps"] + len(rec["split_ms"])
     want.update(sym_gram=n_post, diag_chol=3 * n_post, cross_gram=rec["steps"] + rec["batches"],
-                tri_mm=rec["batches"])
+                tri_mm=rec["batches"], marginal_moments=rec["batches"])
     if launches != want:
         raise AssertionError(f"protocol: launches {launches}, expected {want}")
 
@@ -1639,17 +1774,19 @@ def time_k3(blocks: dict) -> dict:
     return out
 
 
-def kernel_times(fn, plain, library, flops, nbytes, precision="f32", one_kernel=True,
+def kernel_times(fn, plain, flops, nbytes, library=None, precision="f32", one_kernel=True,
                  **info) -> dict:
     """One kernel's numbers at one shape: ``info`` (its shape, say), then
     its device time per call (``device_ms``, per traced launch when ``fn``
     launches one kernel), CUDA events around back-to-back calls, cold, the
-    plain version's and the library call's device times, the bound at
-    ``precision``'s peak (and, where that is another, at the f32 rate), the work and
-    the effective TFLOP/s."""
+    plain version's and the library call's device times (the plain
+    version's where the library call is the plain version, ``library``
+    None), the bound at ``precision``'s peak (and, where that is another,
+    at the f32 rate), the work and the effective TFLOP/s."""
     ms = device_ms(fn, one_kernel=one_kernel)
-    t = dict(info, ms=ms, event_ms=time_ms(fn), cold_ms=cold_ms(fn),
-             plain_ms=device_ms(plain, reps=5, warmup=1), library_ms=device_ms(library))
+    plain_ms = device_ms(plain, reps=5, warmup=1)
+    t = dict(info, ms=ms, event_ms=time_ms(fn), cold_ms=cold_ms(fn), plain_ms=plain_ms,
+             library_ms=plain_ms if library is None else device_ms(library))
     t["bound_ms"], t["bound_by"] = bound(flops, nbytes, precision)
     if precision != "f32":
         t["bound_f32_ms"], t["bound_f32_by"] = bound(flops, nbytes)
@@ -2700,8 +2837,10 @@ def check_k7_small(dev, cond_cov):
 # same noise, or within `tol` with the reason printed; its launches per
 # call under each route
 EXPORT = dict(batch_size=512, n_f=50, n_var_samples=20, reps=10, tol=1e-6, seed=SEED + 11,
-              launches={"default": {"sym_gram": 1, "diag_chol": 3, "cross_gram": 1, "tri_mm": 1},
-                        "fused": {"sym_gram": 1, "chol_inv": 1, "cross_gram": 1, "tri_mm": 1}})
+              launches={"default": {"sym_gram": 1, "diag_chol": 3, "cross_gram": 1, "tri_mm": 1,
+                                    "marginal_moments": 1},
+                        "fused": {"sym_gram": 1, "chol_inv": 1, "cross_gram": 1, "tri_mm": 1,
+                                  "marginal_moments": 1}})
 # each launch counter's kernels in a trace, by their __global__ names (K8's
 # launcher runs K3's kernel; rbf_gram_sym is a part of rbf_gram's count)
 KERNEL_SYMBOLS = {
@@ -2709,6 +2848,7 @@ KERNEL_SYMBOLS = {
     "diag_chol": r"\bdiag_chol_kernel\b", "cross_gram": r"\bcross_gram_kernel\b",
     "rbf_gram": r"\brbf_gram(_sym|_small)?_kernel\b", "chol_inv": r"\bchol_inv_kernel\b",
     "cholesky": r"\bchol_kernel\b", "tri_mm": r"\btri_mm_kernel\b",
+    "marginal_moments": r"\bmarginal_moments_kernel\b",
 }
 PROFILE = dict(iters=10, top=15)
 
@@ -3241,6 +3381,17 @@ def main() -> int:
         print(smi)
         print(f"total: {time.perf_counter() - t_start:.1f} s")
         return 0
+    if sys.argv[1:] == ["--phases=marginal_moments"]:  # K10's checks and times alone, no result line
+        chain = profile_moments_chain(dev)
+        _, f64_k10, cases = check_marginal_moments(dev)
+        times = {label: kernel_times(**case) for label, case in cases.items()}
+        for label, t in times.items():
+            print(f"  marginal_moments at {label}: {fmt_times(t)}")
+        print(json.dumps({"marginal_moments": times, "f64": f64_k10,
+                          "chain": {k: chain[k] for k in ("top", "events_per_call", "busy_ms")}}))
+        print(smi)
+        print(f"total: {time.perf_counter() - t_start:.1f} s")
+        return 0
     print("kernels against their plain versions on the card:")
     errs, f64 = check_kernels(dev)
     errs["diag_chol"], flag_k3 = check_k3(dev)
@@ -3250,6 +3401,8 @@ def main() -> int:
     errs.update(errs_chol)
     print("K9, the marginal's triangular product W = L^-1 K_zx:")
     errs["tri_mm"], f64["tri_mm"], tri_mm_cases = check_tri_mm(dev)
+    print("K10, the marginal's readers of W (f_mean, diag(W^T W), diag(C^T C)):")
+    errs["marginal_moments"], f64["marginal_moments"], moments_cases = check_marginal_moments(dev)
     print("the global SVGP's kernel shapes (K5 on raw pixels and on the toy's 2 inputs, K7):")
     e5, f64_global, k5_global = check_k5_global(dev)
     errs["rbf_gram"] = max(errs["rbf_gram"], e5)
@@ -3365,6 +3518,12 @@ def main() -> int:
         dict(  # no train step runs it (the step records gradients): 0 launches a step
             name="tri_mm", route="cuda", source="vargp_tpu_torch/csrc/tri_mm.cu",
             replaces="none (XLA's dot, vargp_tpu/gpmath/conditional.py:420)", cases=tri_mm_cases,
+        ),
+        dict(  # nor this one: 0 launches a step
+            name="marginal_moments", route="cuda",
+            source="vargp_tpu_torch/csrc/marginal_moments.cu",
+            replaces="none (XLA's products and reductions, vargp_tpu/gpmath/conditional.py:402)",
+            cases=moments_cases,
         ),
     ]
     # K8, K7 and K6 (their wrappers' cost functions): the lower triangle

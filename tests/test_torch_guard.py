@@ -78,7 +78,8 @@ def test_build_hashes_every_source():
 
     names = {p.name for p in build.sources()}
     assert names == {"sym_gram.cu", "sym_gram_tri.cu", "cross_gram.cu", "diag_chol.cu",
-                     "rbf_gram.cu", "diag_chol_chunked.cu", "chol.cu", "chol_inv.cu", "tri_mm.cu"}
+                     "rbf_gram.cu", "diag_chol_chunked.cu", "chol.cu", "chol_inv.cu", "tri_mm.cu",
+                     "marginal_moments.cu"}
     assert build.library_path().parent.parent == build.BUILD_ROOT
     assert re.fullmatch(r"[0-9a-f]{16}", build.library_path().parent.name)
 

@@ -33,6 +33,7 @@ from vargp_tpu_torch.ops.cuda.chol import cholesky, cholesky_plain
 from vargp_tpu_torch.ops.cuda.chol_inv import chol_inv, chol_inv_plain
 from vargp_tpu_torch.ops.cuda.cross_gram import cross_gram, cross_gram_plain
 from vargp_tpu_torch.ops.cuda.diag_chol import diag_chol, diag_chol_chunked, diag_chol_plain
+from vargp_tpu_torch.ops.cuda.marginal_moments import marginal_moments, marginal_moments_plain
 from vargp_tpu_torch.ops.cuda.rbf_gram import rbf_gram, rbf_gram_plain
 from vargp_tpu_torch.ops.cuda.sym_gram import sym_gram, sym_gram_plain
 from vargp_tpu_torch.ops.cuda.sym_gram_tri import sym_gram_tri
@@ -40,7 +41,7 @@ from vargp_tpu_torch.ops.cuda.tri_mm import tri_mm, tri_mm_plain
 from vargp_tpu_torch.utils import tracing
 
 OPS = ("sym_gram", "sym_gram_tri", "cross_gram", "diag_chol", "diag_chol_chunked", "rbf_gram",
-       "rbf_gram_sym", "cholesky", "chol_inv", "tri_mm")
+       "rbf_gram_sym", "cholesky", "chol_inv", "tri_mm", "marginal_moments")
 
 
 def _spd(rng, G, S):
@@ -75,6 +76,10 @@ def _inputs(rng, name):
     if name == "tri_mm":
         L, X = torch.tril(t(2, 3, 9, 9)), t(2, 3, 9, 5)
         return (lambda: tri_mm(L, X)), (lambda: tri_mm_plain(L, X)), (L, X)
+    if name == "marginal_moments":
+        W, v, w, kxx = t(2, 3, 12, 5), t(2, 3, 12, 1), torch.tril(t(2, 3, 3, 4, 4)), t(2, 1, 1)
+        return ((lambda: marginal_moments(W, v, w, kxx)),
+                (lambda: marginal_moments_plain(W, v, w, kxx)), (W, v, w, kxx))
     K = _spd(rng, 3, 150)
     if name == "cholesky":
         return (lambda: cholesky(K)), (lambda: cholesky_plain(K)), (K,)

@@ -26,6 +26,8 @@ from typing import NamedTuple, Sequence
 import torch
 
 from vargp_tpu_torch.gpmath.linalg import cholesky, mm_h, mtm_h, tri_half_split, tri_solve
+from vargp_tpu_torch.ops.cuda.marginal_moments import (MAX_M, marginal_moments,
+                                                       marginal_moments_plain)
 from vargp_tpu_torch.ops.cuda.tri_mm import tri_mm
 
 
@@ -156,6 +158,20 @@ def takes_tri_mm(L_inv: torch.Tensor, Kzx: torch.Tensor) -> bool:
             and L_inv.shape[:-2] == Kzx.shape[:-2])
 
 
+def takes_marginal_moments(W: torch.Tensor, v_mean: torch.Tensor, w: torch.Tensor,
+                           Kxx_diag: torch.Tensor) -> bool:
+    """Whether W's readers take ``marginal_moments``: every operand on the
+    card, none recording a gradient (the kernel has no backward rule, so the
+    ELBO step keeps the dense chain), no operand broadcast against W's
+    leading dimensions, and task blocks the kernel's shared memory holds
+    (at most ``MAX_M`` rows).  The operator checks the rest of its shapes.
+    On the CPU the chain is the kernel's plain version anyway."""
+    ops = (W, v_mean, w, Kxx_diag)
+    return (all(t.is_cuda and not t.requires_grad for t in ops)
+            and W.shape[:-2] == v_mean.shape[:-2] == w.shape[:-3]
+            and Kxx_diag.shape[:-2] == W.shape[:-3] and w.shape[-1] <= MAX_M)
+
+
 def whitened_marginal_diag_factored(
     L_inv: torch.Tensor,
     v_mean: torch.Tensor,
@@ -170,20 +186,18 @@ def whitened_marginal_diag_factored(
 
     W goes through the triangular product ``tri_mm`` (3xTF32, L^{-1}'s zero
     upper triangle skipped) when :func:`takes_tri_mm` holds, else through
-    the dense ``mm_h``: the same values to f32 accuracy."""
-    T, M = w.shape[-3], w.shape[-1]
+    the dense ``mm_h``; its readers through ``marginal_moments`` (one pass
+    over W, w_t's zero upper triangle skipped) when
+    :func:`takes_marginal_moments` holds, else through the dense chain
+    ``marginal_moments_plain``: the same values to f32 accuracy."""
     if takes_tri_mm(L_inv, Kzx):
         W = tri_mm(L_inv.contiguous(), Kzx.contiguous())  # (..., S, B)
     else:
         W = mm_h(L_inv, Kzx)
-    f_mean = torch.einsum("...mi,...mb->...b", v_mean, W)
-    diag1 = torch.sum(torch.square(W), dim=-2)
-    W4 = W.reshape(*W.shape[:-2], T, M, W.shape[-1])
-    C = mtm_h(w, W4)  # (..., T, M, B)
-    diag2 = torch.sum(torch.square(C), dim=(-3, -2))
-    # exact value >= diag2 >= 0; the clamp only removes rounding below 0
-    f_var = torch.clamp(Kxx_diag - diag1 + diag2, min=0.0)
-    return f_mean, f_var
+    if takes_marginal_moments(W, v_mean, w, Kxx_diag):
+        return marginal_moments(W.contiguous(), v_mean.contiguous(), w.contiguous(),
+                                Kxx_diag.contiguous())
+    return marginal_moments_plain(W, v_mean, w, Kxx_diag)
 
 
 def ar_joint_posterior(

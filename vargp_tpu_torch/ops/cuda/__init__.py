@@ -2,9 +2,10 @@
 
 A module per kernel: ``sym_gram`` (K1), ``sym_gram_tri`` (K2),
 ``diag_chol`` (K3, and K8 as ``diag_chol_chunked``), ``cross_gram`` (K4),
-``rbf_gram`` (K5), ``chol_inv`` (K6), ``chol`` (K7) and ``tri_mm`` (K9,
-the triangular product of the predictive marginal, which replaces no
-Pallas kernel).  Each kernel is a
+``rbf_gram`` (K5), ``chol_inv`` (K6), ``chol`` (K7), ``tri_mm`` (K9,
+the triangular product of the predictive marginal) and
+``marginal_moments`` (K10, the marginal's readers of that product), which
+replace no Pallas kernel.  Each kernel is a
 PyTorch operator in the ``vargp_torch`` namespace (``build.kernel_op``):
 it launches its kernel for CUDA tensors, takes its plain PyTorch version
 for CPU tensors, gives shapes alone for fake tensors and refuses any

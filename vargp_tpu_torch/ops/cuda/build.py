@@ -71,6 +71,8 @@ _SIGNATURES = {
     "vargp_chol": (_P, _P, _I, _I, _I, _P),  # K, L, G, S, cluster size, stream
     "vargp_chol_inv": (_P, _P, _P, _I, _I, _I, _P),
     "vargp_tri_mm": (_P, _P, _P, _I, _I, _I, _P),  # L, X, out, G, S, N
+    # W, v, w, kxx, f_mean, f_var, G, T, M, B, W's and w's row strides, matrices a hyper sample
+    "vargp_marginal_moments": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 
